@@ -1,0 +1,168 @@
+"""Build, load and count the hand-written CUDA kernels.
+
+The kernels live in ``piecewise_icp_torch/csrc/*.cu`` and are compiled at
+first use by ``nvcc`` into ONE shared library with a plain C interface,
+loaded with ``ctypes`` (no PyTorch headers: a build takes seconds, not
+minutes).  The library goes to ``piecewise_icp_torch/_build/<hash>/``,
+keyed by a content hash of the sources and flags, so an edited kernel is
+rebuilt and an unchanged one is reused.
+
+Nothing here runs at import time: ``nvcc`` and the GPU are touched only
+when a wrapper is handed a CUDA tensor.
+
+Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel
+launch, nowhere else), and every plain version that is handed a CUDA
+tensor counts in :data:`PLAIN_ON_CUDA`, so a run can show which path its
+work took.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import tempfile
+
+import torch
+
+_PKG = pathlib.Path(__file__).resolve().parent.parent
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG / "_build"
+LIB_NAME = "libpwicp_torch.so"
+
+# -fmad=false: no FMA contraction, so squared distances and the VCCS metric
+# round exactly like the plain versions and the JAX reference (ties decided
+# by == must agree bit for bit).
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC"]
+
+LAUNCHES: "collections.Counter[str]" = collections.Counter()
+PLAIN_ON_CUDA: "collections.Counter[str]" = collections.Counter()
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_GRID_ARGS = [_P, _P, _I, _F, _F, _F, _F, _I, _I, _I]
+
+_SIGNATURES = {
+    "pwicp_range_nn1": [_P, _P, _I] + _GRID_ARGS + [_P, _P, _P],
+    "pwicp_knn_sorted": [_P, _P, _I, _I] + _GRID_ARGS + [_P, _P, _P],
+    "pwicp_seg_stats": [_P, _I, _I, _F] + _GRID_ARGS + [_P, _P],
+    "pwicp_prop_round": [_P, _P, _I, _P, _F, _F, _I] + _GRID_ARGS
+    + [_P, _P, _P],
+}
+
+_lib: ctypes.CDLL | None = None
+build_seconds: float | None = None
+build_log: str = ""
+
+
+def reset_counts() -> None:
+    LAUNCHES.clear()
+    PLAIN_ON_CUDA.clear()
+
+
+def note_plain(name: str, t: torch.Tensor) -> None:
+    """Record that the plain version ``name`` ran on ``t``'s device."""
+    if t.is_cuda:
+        PLAIN_ON_CUDA[name] += 1
+
+
+def sources() -> list[pathlib.Path]:
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _source_key() -> str:
+    h = hashlib.sha256()
+    for p in sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) \
+        / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found: the CUDA kernels of "
+                       "piecewise_icp_torch cannot be built")
+
+
+def library_path() -> pathlib.Path:
+    return BUILD_ROOT / _source_key() / LIB_NAME
+
+
+def build() -> pathlib.Path:
+    """Compile the kernel library unless an up-to-date build exists."""
+    global build_seconds, build_log
+    import time
+
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    with tempfile.NamedTemporaryFile(dir=out.parent, suffix=".so",
+                                     delete=False) as tmp:
+        tmp_path = tmp.name
+    t0 = time.perf_counter()
+    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC),
+                           "-o", tmp_path, *cu],
+                          capture_output=True, text=True)
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+    (out.parent / "build.log").write_text(build_log)
+    if proc.returncode != 0:
+        os.unlink(tmp_path)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    os.replace(tmp_path, out)
+    return out
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def launch(name: str, counter: str, *args) -> None:
+    """Call C entry ``name`` on the current stream; raise on a launch error."""
+    stream = torch.cuda.current_stream().cuda_stream
+    err = getattr(lib(), name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
+    LAUNCHES[counter] += 1
+
+
+def check(t: torch.Tensor, name: str, dtype: torch.dtype,
+          shape: tuple | None = None, device: torch.device | None = None
+          ) -> None:
+    """Validate a kernel operand (CUDA, dtype, shape, contiguity)."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if shape is not None and tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                         f"got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")

@@ -33,6 +33,8 @@ GOLDEN_PAIR = os.path.join(REFERENCE_ROOT, "python/results/PairReg")
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel; skipped without a CUDA device")
 
 
 @pytest.fixture()

@@ -1,0 +1,107 @@
+"""PyTorch port, each hand-written CUDA kernel against its plain PyTorch
+version on the card.  A CUDA kernel has no CPU mode, so these tests skip
+where no CUDA device is visible; ``python3 chip_smoke.py`` runs the same
+comparisons at the main path's full size on the card."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from piecewise_icp_torch.models.segmentation_device import (
+    _seg_h, propagate_seeds)
+from piecewise_icp_torch.ops import _cuda, nn_cuda, seg_cuda
+from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
+from piecewise_icp_torch.utils.synth import terrain_cloud
+
+pytestmark = pytest.mark.cuda
+
+RES = 2.0 / 150
+
+
+@pytest.fixture()
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.fixture()
+def grid(cuda):
+    rng = np.random.default_rng(3)
+    pts = terrain_cloud(rng, n_side=150).astype(np.float64)
+    pts = (pts - pts.mean(axis=0)).astype(np.float32)
+    return CellGrid.from_index(build_grid(pts, _seg_h(45, RES)), cuda)
+
+
+def _fresh(g):
+    return dataclasses.replace(g, _self_nbr=[])
+
+
+def test_range_nn1(grid, cuda):
+    rng = np.random.default_rng(4)
+    q = grid.points + torch.from_numpy(
+        rng.normal(scale=0.005, size=tuple(grid.points.shape)
+                   ).astype(np.float32)).to(cuda)
+    qm = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
+    n0 = _cuda.LAUNCHES["range_nn1"]
+    ki, kd, kr, _ = nn_cuda.range_nn1(q, qm, grid)
+    assert _cuda.LAUNCHES["range_nn1"] == n0 + 1
+    pi, pd2 = nn_cuda.range_nn1_plain(q, qm, grid)
+    pd = torch.sqrt(pd2)
+    pr = pd <= float(np.float32(grid.h))
+    assert bool((kr == pr).all())
+    # exact arithmetic on both sides (no FMA): equal ids and distances
+    assert bool((ki[kr] == pi[kr]).all())
+    assert bool((kd[kr] == pd[kr]).all())
+
+
+def test_knn_sorted(grid, cuda):
+    qm = torch.ones(grid.n, dtype=torch.bool, device=cuda)
+    ki, kd, kr = nn_cuda.knn_sorted(grid, qm, 15)
+    pi, pd2 = nn_cuda.knn_sorted_plain(_fresh(grid), qm, 15)
+    assert bool((ki[kr] == pi[kr]).all())
+    assert bool((kd[kr] == torch.sqrt(pd2[kr])).all())
+
+
+def test_seg_stats(grid, cuda):
+    qm = torch.ones(grid.n, dtype=torch.bool, device=cuda)
+    qm[::11] = False
+    ks = seg_cuda.seg_stats_rows(grid, qm, 45)
+    ps = seg_cuda.seg_stats_plain(_fresh(grid), qm, 45)
+    assert bool((ks[:, :2] == ps[:, :2]).all())      # counts and t2 equal
+    # moment sums in another order: 1e-5 of count * h (first moments)
+    # and count * h^2 (second moments)
+    h = grid.h
+    scale = torch.cat([ps[:, :1].expand(-1, 3) * h,
+                       ps[:, :1].expand(-1, 6) * h * h], dim=1)
+    assert bool(((ks[:, 2:11] - ps[:, 2:11]).abs()
+                 <= 1e-5 * scale + 1e-12).all())
+
+
+@pytest.mark.parametrize("adopt", [False, True])
+def test_prop_round(grid, cuda, adopt):
+    qm = torch.ones(grid.n, dtype=torch.bool, device=cuda)
+    t2, _, nrm = seg_cuda.seg_stats(grid, qm, 45)
+    seeds = propagate_seeds(grid.points.cpu().numpy(), 10 * RES)
+    state = seg_cuda.init_state(grid.points, nrm, torch.from_numpy(
+        seeds.astype(np.int64)).to(cuda))
+    qall = torch.cat([grid.points, nrm, t2[:, None],
+                      torch.zeros_like(t2)[:, None]], dim=1).contiguous()
+    args = (float(0.4 / (10 * RES)), grid.h * grid.h, adopt)
+    for _ in range(2):
+        state, _ = seg_cuda.prop_round(grid, qall, qm, state, *args[:2],
+                                       False)
+    ks, kc = seg_cuda.prop_round(grid, qall, qm, state, *args)
+    ps, pc = seg_cuda.prop_round_plain(_fresh(grid), qall, qm, state, *args)
+    assert bool((ks == ps).all())
+    assert int(kc) == int(pc)
+
+
+def test_wrapper_rejects_bad_operands(grid, cuda):
+    qm = torch.ones(grid.n, dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        nn_cuda.range_nn1(grid.points.double(), qm, grid)
+    with pytest.raises(ValueError):
+        nn_cuda.knn_sorted(grid, qm[:-1], 15)

@@ -1,0 +1,178 @@
+"""PyTorch port, nearest-neighbour ops held against the JAX package: the
+plain versions of K1 (range_nn1) and K2 (knn_sorted) against the Pallas
+kernels in interpret mode, the SOR decision, and the brute 1-NN / k-NN.
+
+Distance tolerance: XLA on the CPU contracts (dx*dx + dy*dy) + dz*dz into
+fused multiply-adds; the port rounds every product and sum separately
+(bit-identical to its CUDA kernels, built with -fmad=false).  Squared
+distances then differ by up to ~1.5 ulp, and distances after the square
+root by up to 2 ulp (ULP below).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from piecewise_icp_tpu.ops.grid_nn import build_grid as jbuild_grid
+from piecewise_icp_tpu.ops.grid_nn import slab_padded_self_join
+from piecewise_icp_tpu.ops.nn import knn as jknn
+from piecewise_icp_tpu.ops.nn import nn1 as jnn1
+from piecewise_icp_tpu.ops.nn_pallas import (_KQT, _TPB, grid_knn_sorted,
+                                             grid_range_query)
+from piecewise_icp_tpu.ops.preprocess import _sor_mask_sorted
+
+from piecewise_icp_torch.ops import nn_cuda
+from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
+from piecewise_icp_torch.ops.preprocess import sor_mask_sorted
+
+from util import terrain_cloud
+
+CPU = torch.device("cpu")
+ULP = 2
+
+
+def _cloud(rng, n_side=70, outliers=0.01):
+    """A ~5k-point terrain scan with a few points lifted off the surface
+    (SOR has something to remove)."""
+    pts = terrain_cloud(rng, n_side=n_side).astype(np.float64)
+    n_out = int(outliers * len(pts))
+    sel = rng.choice(len(pts), n_out, replace=False)
+    pts[sel, 2] += rng.uniform(0.03, 0.1, n_out)
+    return (pts - pts.mean(axis=0)).astype(np.float32)
+
+
+def _cell_sort(q, grid):
+    cell = np.floor((q - grid.origin) / grid.h).astype(np.int64)
+    d = grid.dims
+    lin = ((np.clip(cell[:, 0], 0, d[0] - 1) * d[1]
+            + np.clip(cell[:, 1], 0, d[1] - 1)) * d[2]
+           + np.clip(cell[:, 2], 0, d[2] - 1))
+    return q[np.argsort(lin, kind="stable")]
+
+
+def _slab(pts, h):
+    """The JAX package's main-path self-join layout (host ranges)."""
+    grid = jbuild_grid(pts, h)
+    sp = slab_padded_self_join(grid, lane=_KQT, block=_KQT * _TPB,
+                               tile_multiple=_TPB)
+    inv = np.full(len(sp.points), -1, np.int64)
+    inv[sp.pos_map] = np.arange(grid.n_real)
+    return grid, sp, inv
+
+
+class TestRangeNN1:
+    def test_plain_matches_pallas(self, rng):
+        t = _cloud(rng)
+        q = _cloud(rng) + np.float32(0.004)
+        q = np.concatenate([q, (rng.uniform(-2, 2, (50, 3))
+                                ).astype(np.float32)])
+        grid = jbuild_grid(t, 0.1)
+        q = _cell_sort(q, grid)
+        qm = np.ones(len(q), bool)
+        qm[::17] = False
+        ji, jd, jr, strict = (np.asarray(a) for a in grid_range_query(
+            jnp.asarray(q), jnp.asarray(qm), jnp.asarray(grid.points),
+            jnp.asarray(grid.cell_starts), jnp.asarray(grid.origin),
+            jnp.asarray(grid.dims, jnp.int32),
+            jnp.asarray(grid.h, jnp.float32)))
+        ti, td, tr, tstrict = nn_cuda.range_nn1(
+            torch.from_numpy(q), torch.from_numpy(qm),
+            CellGrid.from_index(build_grid(t, 0.1), CPU))
+        ti, td, tr = ti.numpy(), td.numpy(), tr.numpy()
+        assert tstrict
+        # resolved sets: the port resolves every query the Pallas kernel
+        # does, and exactly the same ones where every tile was covered
+        assert (tr | ~jr).all()
+        if bool(strict):
+            np.testing.assert_array_equal(tr, jr)
+        real = jr & qm
+        assert real.mean() > 0.5
+        # distances of resolved queries within ULP; same nearest point
+        np.testing.assert_array_max_ulp(td[real], jd[real], maxulp=ULP)
+        np.testing.assert_array_equal(ti[real], ji[real])
+        assert np.isinf(td[~qm]).all() and tr[~qm].all()
+
+
+class TestKnnSorted:
+    def test_plain_matches_pallas(self, rng):
+        pts = _cloud(rng)
+        h, k = 0.13, 15
+        grid, sp, inv = _slab(pts, h)
+        ji, jd, jr = (np.asarray(a) for a in grid_knn_sorted(
+            jnp.asarray(sp.points), jnp.asarray(sp.real_mask),
+            jnp.asarray(sp.points), jnp.zeros((1,), jnp.int32),
+            jnp.asarray(grid.origin), jnp.asarray(grid.dims, jnp.int32),
+            jnp.asarray(grid.h, jnp.float32), k,
+            host_ranges=(jnp.asarray(sp.ranges),
+                         jnp.asarray(sp.covered))))
+        rows = sp.pos_map
+        ji, jd, jr = ji[rows], jd[rows], jr[rows]
+        ji = np.where(ji >= 0, inv[np.clip(ji, 0, None)], -1)
+        covered = sp.covered[rows // _KQT]
+
+        n = grid.n_real
+        cg = CellGrid.from_index(build_grid(pts, h), CPU)
+        ti, td, tr = (a.numpy() for a in nn_cuda.knn_sorted(
+            cg, torch.ones(n, dtype=torch.bool), k))
+        assert (tr | ~jr).all()
+        np.testing.assert_array_equal(tr[covered], jr[covered])
+        assert jr.mean() > 0.9
+        # resolved queries: same k neighbours, ascending, ties to the
+        # lowest sorted id; distances within ULP
+        np.testing.assert_array_max_ulp(td[jr], jd[jr], maxulp=ULP)
+        np.testing.assert_array_equal(ti[jr], ji[jr])
+        assert (ti[:, 0] == np.arange(n)).mean() > 0.99   # self first
+
+
+class TestSor:
+    def test_keep_mask_matches_pallas(self, rng):
+        pts = _cloud(rng)
+        h, sor_k, mult = 0.13, 14, 2.7
+        grid, sp, _ = _slab(pts, h)
+        keep_j, n_bad_j = _sor_mask_sorted(
+            jnp.asarray(sp.points), jnp.asarray(sp.real_mask),
+            jnp.asarray(sp.points), jnp.zeros((1,), jnp.int32),
+            jnp.asarray(grid.origin), jnp.asarray(grid.dims, jnp.int32),
+            jnp.asarray(grid.h, jnp.float32), sor_k,
+            jnp.asarray(mult, jnp.float32), interpret=True,
+            ranges=jnp.asarray(sp.ranges), covered=jnp.asarray(sp.covered))
+        keep_j = np.asarray(keep_j)[sp.pos_map]
+        n = grid.n_real
+        keep_t, n_bad_t = sor_mask_sorted(
+            CellGrid.from_index(build_grid(pts, h), CPU),
+            torch.ones(n, dtype=torch.bool), sor_k, mult)
+        keep_t = keep_t.numpy()
+        # f32 global mean/std summed in another order can flip a point
+        # sitting exactly at the threshold: >= 99.9% identical
+        assert (keep_t == keep_j).mean() >= 0.999
+        assert int(n_bad_j) >= n_bad_t >= 0
+        assert (~keep_t).sum() > 0
+
+
+class TestBrute:
+    @pytest.mark.parametrize("masked", [False, True])
+    def test_nn1_knn_match_jax(self, rng, masked):
+        q = rng.normal(size=(700, 3)).astype(np.float32)
+        t = rng.normal(size=(900, 3)).astype(np.float32)
+        qm = np.ones(700, bool)
+        tm = np.ones(900, bool)
+        if masked:
+            qm[::7] = False
+            tm[::5] = False
+        ji, jd = (np.asarray(a) for a in jnn1(
+            jnp.asarray(q), jnp.asarray(t), q_mask=jnp.asarray(qm),
+            t_mask=jnp.asarray(tm)))
+        ti, td = (a.numpy() for a in nn_cuda.nn1(
+            torch.from_numpy(q), torch.from_numpy(t),
+            q_mask=torch.from_numpy(qm), t_mask=torch.from_numpy(tm)))
+        np.testing.assert_array_max_ulp(td, jd, maxulp=ULP)
+        np.testing.assert_array_equal(ti[qm], ji[qm])
+        ki, kd = (np.asarray(a) for a in jknn(
+            jnp.asarray(q), jnp.asarray(t), 8, q_mask=jnp.asarray(qm),
+            t_mask=jnp.asarray(tm)))
+        tki, tkd = (a.numpy() for a in nn_cuda.knn(
+            torch.from_numpy(q), torch.from_numpy(t), 8,
+            q_mask=torch.from_numpy(qm), t_mask=torch.from_numpy(tm)))
+        np.testing.assert_array_max_ulp(tkd, kd, maxulp=ULP)
+        np.testing.assert_array_equal(tki[qm], ki[qm])
