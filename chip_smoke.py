@@ -5,15 +5,27 @@
 
 Builds the port's CUDA kernels from ``piecewise_icp_torch/csrc`` (nvcc),
 holds each kernel against its plain PyTorch version at the main path's
-shapes (a 142,884-point synthetic terrain epoch), then registers one
-synthetic pair of such epochs end to end through
-``piecewise_icp_torch.piecewise_icp_pair_call(..., device="cuda")`` and
-checks the result against the known transform and that every kernel of
-the path was launched.  Any failed check raises; the script exits 0 only
-when every phase passed.  The last line of standard output is the JSON
-summary ``{"ok": true, "device": {...}}``; the line before it is the
+shapes (142,884-point synthetic terrain epochs), checks resolution
+estimation against a float64 KD-tree, then drives the port's two entry
+points on the card:
+
+1. one synthetic pair through
+   ``piecewise_icp_torch.piecewise_icp_pair_call(..., device="cuda")``,
+   one 3,600-point pair that takes the staged preprocessing path, and one
+   full-width pair with 6,000 isolated points per epoch, which the unified
+   path declines: the staged SOR re-measures every unresolved query on the
+   card (and takes the brute k-NN on the card when no grid fits);
+2. a 20-epoch 4D campaign of 142,884-point epochs drifting 2 cm a step
+   through ``piecewise_icp_torch.piecewise_icp_4d_call(...,
+   device="cuda")`` in adaptive mode (the plan advances its target) with
+   auto DT-init and Kalman smoothing,
+
+each checked against the known transforms, with the launch counts of the
+kernels read around each path.  Any failed check raises; the script exits
+0 only when every phase passed.  The last line of standard output is the
+JSON summary ``{"ok": true, "device": {...}}``; the line before it is the
 card's name and power limit, and the one before that the per-kernel JSON
-record.
+record (launches counted in the 4D campaign, which runs all five).
 
 Needs a CUDA device: with none visible it exits non-zero and prints no
 result.
@@ -53,7 +65,31 @@ REPLACES = {
                   "piecewise_icp_tpu/ops/seg_pallas.py:92"),
     "prop_round": ("piecewise_icp_torch/csrc/prop_round.cu",
                    "piecewise_icp_tpu/ops/seg_pallas.py:282"),
+    "nn1_brute": ("piecewise_icp_torch/csrc/nn1_brute.cu",
+                  "piecewise_icp_tpu/ops/nn_pallas.py:59"),
 }
+
+# the kernels of the pair path with the default configuration (DTinit
+# set, so no K5)
+PAIR_KERNELS = ("range_nn1", "knn_sorted", "seg_stats", "prop_round")
+
+# the 4D campaign: the reference's synthetic series length, random-walk
+# ground truth per step (rotation std 8e-4 rad, translation std 3 mm) plus
+# a 2 cm vertical trend, which carries an epoch beyond DTinit (5 cm) of the
+# target two or three epochs back, so the adaptive plan advances
+N_EPOCHS = 20
+TREND_4D = (0.0, 0.0, 0.02)
+
+# the staged SOR at full width: isolated points scattered above both epochs,
+# more than the rescue budget of the unified path (4,096), which declines
+N_SPARSE = 6000
+
+OUTPUTS_4D = ("TransMatrices.txt", "TransParameters.txt",
+              "TransMatrices_toRef.txt", "TransParameters_toRef.txt",
+              "TransPara_AbsError.txt", "TransMatrices_toRef_smoothed.txt",
+              "TransParameters_toRef_smoothed.txt",
+              "TransPara_AbsError_smoothed.txt", "RegPairFile.txt",
+              "phase_timings.jsonl")
 
 
 def log(msg: str) -> None:
@@ -241,6 +277,77 @@ def kernel_phases(seed: int) -> dict:
     return results
 
 
+def k5_phase(seed: int) -> dict:
+    """K5 against its plain version on the pair's two reduced epochs, with
+    masks and exact ties, and the DT-init percentile through both."""
+    import torch
+
+    from piecewise_icp_torch.ops import nn_cuda
+    from piecewise_icp_torch.ops.preprocess import (percentile_c2c,
+                                                    percentile_of)
+    from piecewise_icp_torch.utils.synth import make_pair
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(seed)
+    c1, c2, _ = make_pair(rng, PARAMS, n_side=N_SIDE, extent=EXTENT)
+    shift = -c1.astype(np.float64).mean(axis=0)
+    t_np = (c1.astype(np.float64) + shift).astype(np.float32)
+    q_np = (c2.astype(np.float64) + shift).astype(np.float32)
+    mrng = np.random.default_rng(seed + 1)
+    dup = mrng.choice(len(t_np) - 100, 100, replace=False)
+    t_np[-100:] = t_np[dup]                          # 100 exact duplicates
+    t = torch.from_numpy(t_np).to(dev)
+    q = torch.from_numpy(q_np).to(dev)
+    tm = torch.from_numpy(mrng.uniform(size=len(t_np)) > 0.01).to(dev)
+    qm = torch.from_numpy(mrng.uniform(size=len(q_np)) > 0.4).to(dev)
+
+    ki, kd2 = nn_cuda._nn1_brute_kernel(q, t, qm, tm)
+    pi, pd2 = nn_cuda.nn1_brute_plain(q, t, qm, tm)
+    torch.cuda.synchronize()
+    require(bool((ki == pi).all()), "K5: nearest ids differ")
+    require(bool((kd2 == pd2).all()), "K5: squared distances differ")
+    require(bool((ki[~qm] == -1).all()), "K5: masked query matched")
+    require(bool(tm[ki[qm]].all()), "K5: masked target matched")
+    kd, pd = torch.sqrt(kd2[qm]), torch.sqrt(pd2[qm])
+    err = max_abs(kd, pd)
+    pct_k = percentile_c2c(t, q, 0.75, t_mask=tm, s_mask=qm)
+    pct_p = percentile_of(torch.sqrt(torch.clamp(pd2, min=0.0)), 0.75)
+    require(pct_k == pct_p, f"K5: percentile {pct_k} != plain {pct_p}")
+    res = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: nn_cuda._nn1_brute_kernel(q, t, qm, tm)),
+        plain_ms=time_ms(lambda: nn_cuda.nn1_brute_plain(q, t, qm, tm)))
+    log(f"K5 nn1_brute {q.shape[0]} x {t.shape[0]} ({int(qm.sum())} "
+        f"queries and {int(tm.sum())} targets unmasked, 100 duplicated "
+        f"targets): ids and squared distances equal (tolerance 0); 75th "
+        f"percentile {pct_k:.9g} m on both; kernel {res['ms']:.3f} ms, "
+        f"plain (chunked brute) {res['plain_ms']:.3f} ms")
+    return res
+
+
+def resolution_check(seed: int) -> None:
+    """estimate_resolution on the card against a float64 KD-tree."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    from piecewise_icp_torch.ops.preprocess import estimate_resolution
+    from piecewise_icp_torch.utils.synth import terrain_cloud
+
+    pts = terrain_cloud(np.random.default_rng(seed), n_side=N_SIDE,
+                        extent=EXTENT)
+    t0 = time.perf_counter()
+    got = estimate_resolution(torch.from_numpy(pts).to("cuda"))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    d, _ = cKDTree(pts.astype(np.float64)).query(pts.astype(np.float64), k=2)
+    want = float(d[:, 1].mean())
+    rel = abs(got - want) / want
+    log(f"resolution: {got:.9g} m on the card vs {want:.9g} m (float64 "
+        f"KD-tree), relative {rel:.2e} (bound 1e-5); {dt:.3f} s for "
+        f"{len(pts)} points")
+    require(rel <= 1e-5, "estimate_resolution differs from the KD-tree")
+
+
 # ---------------------------------------------------------------------------
 # pair phase
 # ---------------------------------------------------------------------------
@@ -298,9 +405,9 @@ def pair_phase(seed: int) -> dict:
         f" mm, max {disp.max() * 1e3:.4f} mm (bounds 2 mm / 5 mm)")
     require(disp.mean() < 2e-3 and disp.max() < 5e-3,
             "pair result outside the truth bounds")
-    for name in REPLACES:
+    for name in PAIR_KERNELS:
         require(launches.get(name, 0) > 0,
-                f"kernel {name} was not launched on the main path")
+                f"kernel {name} was not launched on the pair path")
     require(not plain_on_cuda,
             f"plain versions ran on CUDA tensors: {plain_on_cuda}")
     log(f"pair: launches {launches}; plain versions on CUDA: none")
@@ -312,7 +419,8 @@ def pair_phase(seed: int) -> dict:
         res = register_pair(pts1, pts2, cfg, device="cuda")
         torch.cuda.synchronize()
         warm.append(time.perf_counter() - t0)
-    profile_pair(lambda: register_pair(pts1, pts2, cfg, device="cuda"))
+    profile_run(lambda: register_pair(pts1, pts2, cfg, device="cuda"),
+                "warm pair")
     core = res.core
     log(f"pair: cold {cold_s:.3f} s (entry point, PCD in / report out), "
         f"warm register_pair median of 3 {statistics.median(warm):.3f} s "
@@ -324,10 +432,276 @@ def pair_phase(seed: int) -> dict:
     return launches
 
 
-def profile_pair(run) -> None:
-    """One more warm registration under torch.profiler: host phases and
-    device kernel time by name (where the time goes)."""
+def staged_pair_phase(seed: int) -> dict:
+    """A 3,600-point pair, under the unified path's 4,096-point floor:
+    the staged path (SOR, then segmentation) on the card."""
     import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.ops import _cuda
+    from piecewise_icp_torch.ops.transform import apply_transform_np
+    from piecewise_icp_torch.utils.synth import make_pair
+
+    c1, c2, t_true = make_pair(np.random.default_rng(seed), PARAMS,
+                               n_side=60, extent=EXTENT)
+    cfg = pwt.PiecewiseICPConfig(res1=0.022, res2=0.022, svsize1=0.22,
+                                 svsize2=0.22)
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    res = register_pair(c1, c2, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    require(not _cuda.PLAIN_ON_CUDA,
+            f"plain versions ran on CUDA tensors: {dict(_cuda.PLAIN_ON_CUDA)}")
+    for name in ("range_nn1", "seg_stats", "prop_round"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the staged path")
+    disp = np.linalg.norm(apply_transform_np(
+        c2.astype(np.float64), res.trans_mat @ t_true)
+        - c2.astype(np.float64), axis=1)
+    log(f"staged pair ({len(c1)} points): residual vs truth mean "
+        f"{disp.mean() * 1e3:.4f} mm, max {disp.max() * 1e3:.4f} mm (bounds "
+        f"2 mm / 5 mm); {wall:.3f} s; patches {res.core.num_patches}; "
+        f"guard draws {res.guard_draws}; launches {launches}")
+    require(disp.mean() < 2e-3 and disp.max() < 5e-3,
+            "staged pair outside the truth bounds")
+    return launches
+
+
+def _with_sparse_points(rng: np.random.Generator,
+                        pts: np.ndarray) -> np.ndarray:
+    """``pts`` and N_SPARSE isolated points above it, thinning out with
+    height (mean spacing ~0.1 m: none has 14 neighbours within a few cm)."""
+    z0 = float(pts[:, 2].max()) + 0.2
+    sparse = np.stack([rng.uniform(0.0, EXTENT, N_SPARSE),
+                       rng.uniform(0.0, EXTENT, N_SPARSE),
+                       z0 + rng.exponential(1.0, N_SPARSE)], axis=1)
+    return np.concatenate([pts, sparse.astype(np.float32)])
+
+
+def _exact_sor_keep(pts: np.ndarray, k: int, mult: float) -> np.ndarray:
+    """The SOR decision from a float64 KD-tree: mean distance to the k
+    nearest non-self neighbours within mean + mult * sample std."""
+    from scipy.spatial import cKDTree
+
+    p = pts.astype(np.float64)
+    d, _ = cKDTree(p).query(p, k=k + 1)
+    mean_d = d[:, 1:].mean(axis=1)
+    return mean_d <= mean_d.mean() + mult * mean_d.std(ddof=1)
+
+
+def sparse_staged_phase(seed: int) -> dict:
+    """Full-width epochs with N_SPARSE isolated points each: more unresolved
+    SOR queries than the unified path's budget, so it declines and the
+    staged SOR re-measures every unresolved query on the card.  Also the
+    staged SOR of a cloud no grid fits (one point 10 km away): the brute
+    k-NN on the card."""
+    import torch
+    from scipy.spatial import cKDTree
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.models.segmentation_device import _seg_h
+    from piecewise_icp_torch.ops import _cuda
+    from piecewise_icp_torch.ops.preprocess import (_SOR_RESCUE,
+                                                    sor_keep_mask_device,
+                                                    voxel_downsample)
+    from piecewise_icp_torch.ops.transform import apply_transform_np
+    from piecewise_icp_torch.utils.synth import make_pair
+
+    rng = np.random.default_rng(seed + 3)
+    c1, c2, t_true = make_pair(rng, PARAMS, n_side=N_SIDE, extent=EXTENT)
+    s1, s2 = _with_sparse_points(rng, c1), _with_sparse_points(rng, c2)
+    mult = 2.7
+    down = voxel_downsample(s1, RES)
+    d15, _ = cKDTree(down.astype(np.float64)).query(
+        down.astype(np.float64), k=SOR_K + 1)
+    h_unified = _seg_h(KNN_NORMALS, RES)
+    h_staged = max(1.5 * np.sqrt((SOR_K + 1) / np.pi), 4.0) * RES
+    n_bad_u = int((d15[:, -1] > h_unified).sum())
+    n_bad_s = int((d15[:, -1] > h_staged).sum())
+    log(f"sparse staged: {len(down)} points after voxelisation, of which "
+        f"{n_bad_u} / {n_bad_s} have their {SOR_K + 1}th neighbour beyond "
+        f"the unified / staged SOR cell size (budget {_SOR_RESCUE})")
+    require(n_bad_u > _SOR_RESCUE, "sparse staged: the unified path would "
+            "not decline this cloud")
+
+    for label, cloud in (("grid", down),
+                         ("no grid", np.concatenate(
+                             [down, np.full((1, 3), 1e4, np.float32)]))):
+        _cuda.reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        keep = sor_keep_mask_device(cloud, RES, SOR_K, mult,
+                                    torch.device("cuda"))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        require(not _cuda.PLAIN_ON_CUDA, f"sparse staged ({label}): plain "
+                f"versions ran on CUDA tensors: {dict(_cuda.PLAIN_ON_CUDA)}")
+        want = _exact_sor_keep(cloud, SOR_K, mult)
+        agree = float((keep == want).mean())
+        removed_sparse = int((~keep[cloud[:, 2] > c1[:, 2].max() + 0.1])
+                             .sum())
+        log(f"sparse staged SOR ({label}) of {len(cloud)} points on the "
+            f"card: {dt:.3f} s; keeps {int(keep.sum())}, agrees with the "
+            f"float64 KD-tree SOR on {100 * agree:.4f}% (bound 99.9%); "
+            f"removes {removed_sparse} of the points above the surface; "
+            f"launches {launches}")
+        require(agree >= 0.999, f"sparse staged SOR ({label}) differs from "
+                "the exact statistic")
+        if label == "grid":
+            require(launches.get("knn_sorted", 0) > 0,
+                    "sparse staged SOR: K2 was not launched")
+        else:
+            require(not launches, "sparse staged SOR (no grid): a grid "
+                    "kernel was launched")
+            require(not keep[-1], "sparse staged SOR (no grid): the far "
+                    "point was kept")
+
+    cfg = pwt.PiecewiseICPConfig()
+    _cuda.reset_counts()
+    t0 = time.perf_counter()
+    res = register_pair(s1, s2, cfg, device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    require(not _cuda.PLAIN_ON_CUDA,
+            f"plain versions ran on CUDA tensors: {dict(_cuda.PLAIN_ON_CUDA)}")
+    # two declined unified SORs and two staged ones, then segmentation
+    require(launches.get("knn_sorted", 0) >= 4,
+            f"sparse staged pair: the staged SOR did not run on the card "
+            f"({launches})")
+    for name in ("range_nn1", "seg_stats", "prop_round"):
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was not launched on the sparse staged pair")
+    disp = np.linalg.norm(apply_transform_np(
+        c2.astype(np.float64), res.trans_mat @ t_true)
+        - c2.astype(np.float64), axis=1)
+    log(f"sparse staged pair ({len(s1)} points): residual vs truth mean "
+        f"{disp.mean() * 1e3:.4f} mm, max {disp.max() * 1e3:.4f} mm (bounds "
+        f"2 mm / 5 mm); {wall:.3f} s; patches {res.core.num_patches}; "
+        f"guard draws {res.guard_draws}; launches {launches}")
+    require(disp.mean() < 2e-3 and disp.max() < 5e-3,
+            "sparse staged pair outside the truth bounds")
+    return launches
+
+
+def four_d_phase(seed: int, k5_ms: float) -> dict:
+    """The 4D campaign through the user entry point: 20 epochs of 142,884
+    points, adaptive planning, auto DT-init, Kalman smoothing."""
+    import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.ops import _cuda
+    from piecewise_icp_torch.ops.transform import matrix_to_params_gon
+    from piecewise_icp_torch.utils.synth import make_series, \
+        write_ground_truth
+    from piecewise_icp_tpu.io import formats, write_pcd
+    from piecewise_icp_tpu.utils.logging import GLOBAL_TIMER
+
+    t0 = time.perf_counter()
+    epochs, gt = make_series(np.random.default_rng(seed + 2), N_EPOCHS,
+                             trend=TREND_4D, n_side=N_SIDE, extent=EXTENT)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        scans = tmp / "scans"
+        scans.mkdir()
+        for k, e in enumerate(epochs):
+            write_pcd(scans / f"Epoch_{k + 1:03d}.pcd", e)
+        write_ground_truth(tmp / "defined_transformations.txt", gt)
+        out = tmp / "out"
+        cfg = pwt.PiecewiseICPConfig(path1=str(scans),
+                                     path2=str(out) + "/", set_dtinit=False)
+        conf = tmp / "config_4d.txt"
+        cfg.to_reference_file(conf)
+        log(f"4d: {N_EPOCHS} epochs of {len(epochs[0])} points written in "
+            f"{time.perf_counter() - t0:.2f} s (trend {TREND_4D} m a step); "
+            f"isSetDTinit 0, res/SV {cfg.res1}/{cfg.svsize1}, adaptive "
+            f"mode, Kalman on")
+
+        GLOBAL_TIMER.records.clear()
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        ok = pwt.piecewise_icp_4d_call(str(conf), 0, N_EPOCHS, -1,
+                                       device="cuda", kalman_enabled=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        plain_on_cuda = dict(_cuda.PLAIN_ON_CUDA)
+        host = GLOBAL_TIMER.summary()
+        require(ok, "piecewise_icp_4d_call returned False")
+        for name in OUTPUTS_4D:
+            require((out / name).exists(), f"4d: {name} missing")
+        for k in range(2, N_EPOCHS + 1):
+            require((out / f"{k}_Adaptive_TransMatrix.txt").exists(),
+                    f"4d: pair report of epoch {k} missing")
+        errors = formats.read_abs_errors(out / "TransPara_AbsError.txt")
+        raw = formats.read_trans_parameters(
+            out / "TransParameters_toRef.txt")
+        sm = formats.read_trans_parameters(
+            out / "TransParameters_toRef_smoothed.txt")
+        plan = formats.read_reg_pairs(out / "RegPairFile.txt")
+        phases = [json.loads(ln) for ln in
+                  (out / "phase_timings.jsonl").read_text().splitlines()]
+        # the first five epochs again (4 pairs, warm) under the profiler
+        cfg.path2 = str(tmp / "out_profiled") + "/"
+        cfg.to_reference_file(conf)
+        profile_run(lambda: pwt.piecewise_icp_4d_call(
+            str(conf), 0, 5, -1, device="cuda", kalman_enabled=True),
+            "4d, 5 epochs")
+
+    for name in REPLACES:
+        require(launches.get(name, 0) > 0,
+                f"kernel {name} was not launched in the 4D campaign")
+    require(launches.get("nn1_brute", 0) >= N_EPOCHS - 1,
+            "auto DT-init did not launch K5 once per pair")
+    require(not plain_on_cuda,
+            f"plain versions ran on CUDA tensors: {plain_on_cuda}")
+    require(len(set(plan.values())) > 1,
+            f"4d: the adaptive plan never advanced its target: {plan}")
+    require(errors.shape == (N_EPOCHS - 1, 6) and np.isfinite(errors).all(),
+            "4d: bad error table")
+    log(f"4d: chained errors vs truth max {errors[:, :3].max():.3f} mgon, "
+        f"{errors[:, 3:].max():.4f} mm; mean {errors[:, :3].mean():.3f} "
+        f"mgon, {errors[:, 3:].mean():.4f} mm (bounds 200 mgon / 5 mm)")
+    require(errors[:, :3].max() < 200.0 and errors[:, 3:].max() < 5.0,
+            "4d: chained errors outside the bounds")
+    gt_params = np.stack([matrix_to_params_gon(g) for g in gt[1:]])
+    raw_err = np.abs(raw[:, 1:7] - gt_params).mean()
+    sm_err = np.abs(sm[:, 1:7] - gt_params).mean()
+    log(f"4d: mean parameter error raw {raw_err:.6g}, smoothed "
+        f"{sm_err:.6g} (gon and m; bound raw x 1.25 + 1e-4)")
+    require(sm_err <= raw_err * 1.25 + 1e-4, "4d: smoothing degraded")
+
+    pair_s = [r["seconds"] for r in phases if r["phase"] == "pair"]
+    plan_s = sum(r["seconds"] for r in phases
+                 if r["phase"] == "pair_planning")
+    other = ", ".join(f"{r['phase']} {r['seconds']:.3f}" for r in phases
+                      if r["phase"] not in ("pair", "pair_planning"))
+    log(f"4d: campaign {wall:.3f} s for {N_EPOCHS} epochs "
+        f"({wall / N_EPOCHS:.3f} s/epoch, {wall / (N_EPOCHS - 1):.3f} "
+        f"s/pair); planning {plan_s:.3f} s; plan {plan}")
+    log(f"4d: pair phase (registration, epochs prepared) mean "
+        f"{1e3 * statistics.mean(pair_s):.1f} ms, median "
+        f"{1e3 * statistics.median(pair_s):.1f}, min {1e3 * min(pair_s):.1f}"
+        f", max {1e3 * max(pair_s):.1f}; {other} (s)")
+    log("4d: host phases (s, both threads, nested phases overlap): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    sorted(host.items(), key=lambda kv: -kv[1])))
+    log(f"4d: K5 at 142,884 x 142,884 takes {k5_ms:.3f} ms, "
+        f"{100 * k5_ms / (1e3 * statistics.mean(pair_s)):.2f}% of the mean "
+        f"pair phase; launches {launches}; plain versions on CUDA: none")
+    return launches
+
+
+def profile_run(run, label: str) -> None:
+    """``run`` once more under torch.profiler: wall time, host phases, the
+    device's busy share and its kernels by time (where the time goes)."""
+    import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from piecewise_icp_tpu.utils.logging import GLOBAL_TIMER
@@ -342,15 +716,21 @@ def profile_pair(run) -> None:
     phases = ", ".join(f"{k} {v * 1e3:.1f}" for k, v in
                        sorted(GLOBAL_TIMER.summary().items(),
                               key=lambda kv: -kv[1]))
-    log(f"profile: profiled warm pair {wall * 1e3:.1f} ms; host phases "
-        f"(ms, nested phases overlap): {phases}")
-    events = [e for e in prof.key_averages()
-              if getattr(e, "self_device_time_total", 0) > 0]
-    busy = sum(e.self_device_time_total for e in events) / 1e3
-    log(f"profile: device busy {busy:.1f} ms of {wall * 1e3:.1f} ms wall "
-        f"({100 * busy / max(wall * 1e3, 1e-9):.1f}%)")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"profile:   {e.self_device_time_total / 1e3:9.3f} ms  "
+    log(f"profile {label}: {wall * 1e3:.1f} ms; host phases (ms, nested "
+        f"phases overlap): {phases}")
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0]
+    # a CPU operator's row repeats the time of the kernels it launched:
+    # the busy time sums the device rows only
+    kernels = [e for e in rows if e.device_type != DeviceType.CPU]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    all_rows = sum(e.self_device_time_total for e in rows) / 1e3
+    log(f"profile {label}: device busy {busy:.1f} ms of {wall * 1e3:.1f} ms "
+        f"wall ({100 * busy / max(wall * 1e3, 1e-9):.1f}%; {len(kernels)} "
+        f"kernel names; operator and kernel rows summed together: "
+        f"{all_rows:.1f} ms)")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        log(f"profile {label}:   {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
 
 
@@ -383,17 +763,26 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     lib_path = _cuda.build()
+    nvcc_s = ("cached" if _cuda.build_seconds is None
+              else f"{_cuda.build_seconds:.2f}")
     log(f"kernel library {lib_path.relative_to(_cuda.BUILD_ROOT.parent)} "
-        f"ready in {time.perf_counter() - t0:.2f} s "
-        f"(nvcc {_cuda.build_seconds if _cuda.build_seconds is not None else 'cached'} s)")
+        f"ready in {time.perf_counter() - t0:.2f} s (nvcc {nvcc_s} s)")
     for line in _cuda.build_log.splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             log(f"  ptxas: {line.strip()}")
     _cuda.lib()
 
     kern = kernel_phases(args.seed)
-    launches = pair_phase(args.seed)
+    kern["nn1_brute"] = k5_phase(args.seed)
+    resolution_check(args.seed)
+    pair_phase(args.seed)
+    staged_pair_phase(args.seed)
+    sparse_staged_phase(args.seed)
+    launches = four_d_phase(args.seed, kern["nn1_brute"]["ms"])
     require("jax" not in sys.modules, "JAX was imported")
+    # the host SOR statistic lives in the native library: never loaded
+    require("piecewise_icp_tpu.native" not in sys.modules,
+            "the native host library was loaded")
 
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -99,6 +99,15 @@ __device__ __forceinline__ float sqdist(float qx, float qy, float qz,
   return sqdist(qx, qy, qz, t, &dx, &dy, &dz);
 }
 
+// The same from separate target coordinates (structure-of-arrays tiles).
+__device__ __forceinline__ float sqdist(float qx, float qy, float qz,
+                                        float tx, float ty, float tz) {
+  float dx = __fsub_rn(qx, tx), dy = __fsub_rn(qy, ty),
+        dz = __fsub_rn(qz, tz);
+  return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
+                   __fmul_rn(dz, dz));
+}
+
 // Warp-wide lexicographic arg-min of (d, i); every lane ends with the result.
 __device__ __forceinline__ void warp_argmin(float& d, int& i) {
   for (int o = kWarp / 2; o > 0; o >>= 1) {

@@ -1,10 +1,13 @@
 """Pairwise registration — counterpart of
 ``piecewise_icp_tpu/models/pairwise.py``.
 
-Preprocess (voxel grid + SOR) and segment both clouds on one grid each,
-reduce to the target centroid, run the Piecewise-ICP core, de-reduce the
-transform, optionally re-roll hard pairs (acceptance guard), write the
-reports.  Every entry point takes an explicit ``device``.
+Estimate the resolution when the config asks for it, preprocess (voxel
+grid + SOR) and segment both clouds — on one shared grid each (the unified
+path), or, for clouds the unified path declines, SOR then segmentation
+(the staged path) — reduce to the target centroid, run the Piecewise-ICP
+core, de-reduce the transform, optionally re-roll hard pairs (acceptance
+guard), write the reports.  Every entry point takes an explicit
+``device``.
 """
 
 from __future__ import annotations
@@ -22,7 +25,8 @@ from piecewise_icp_tpu.utils.errors import PwICPError
 from piecewise_icp_tpu.utils.logging import PhaseTimer, log
 
 from ..device import resolve_device
-from ..ops.preprocess import voxel_downsample
+from ..ops.preprocess import (estimate_resolution, preprocess_cloud,
+                              voxel_downsample)
 from ..ops.transform import (apply_transform_np, matrix_to_angles,
                              matrix_to_params_gon, params_to_matrix,
                              translation_matrix)
@@ -54,20 +58,31 @@ class TargetState:
                    resolution=float(resolution))
 
 
-def _resolution(cfg: PiecewiseICPConfig, which: int) -> float:
+def _resolution(points: np.ndarray, cfg: PiecewiseICPConfig, which: int,
+                device: torch.device) -> float:
+    """The configured resolution, or the estimated one when the config says
+    ``isSetResSVsize: 0``."""
+    if cfg.set_res_svsize:
+        return cfg.res1 if which == 1 else cfg.res2
+    return estimate_resolution(torch.from_numpy(
+        np.ascontiguousarray(points, dtype=np.float32)).to(device))
+
+
+def _sv_size(cfg: PiecewiseICPConfig, res: float, which: int) -> float:
     if not cfg.set_res_svsize:
-        raise NotImplementedError(
-            "resolution estimation (set_res_svsize=False) is not ported yet "
-            "(ROADMAP: resolution estimation)")
-    return cfg.res1 if which == 1 else cfg.res2
+        return res * cfg.sv_size_res_mult
+    return cfg.svsize1 if which == 1 else cfg.svsize2
 
 
-def _prepare_cloud_unified(points: np.ndarray, cfg: PiecewiseICPConfig,
-                           sor_mult: float, res: float, sv: float,
-                           lattice_offset: np.ndarray | None,
-                           device: torch.device):
-    """Voxel downsample, then one-grid SOR + segmentation.  Returns
-    (kept points [input frame and order], PatchSet [input frame])."""
+def _prepare_cloud(points: np.ndarray, cfg: PiecewiseICPConfig,
+                   sor_mult: float, res: float, sv: float,
+                   lattice_offset: np.ndarray | None, device: torch.device):
+    """Voxel downsample, then one-grid SOR + segmentation (the unified
+    path).  Returns (kept points [input frame and order], PatchSet [input
+    frame]), or (kept points, None) when the unified path declines the
+    cloud (fewer than 4,096 points after voxelisation, an extreme extent,
+    too many unresolved SOR queries): the staged ``preprocess_cloud`` then
+    runs and the caller segments the kept points itself."""
     from piecewise_icp_tpu.utils.logging import gphase
 
     with gphase("prep.voxel"):
@@ -84,11 +99,9 @@ def _prepare_cloud_unified(points: np.ndarray, cfg: PiecewiseICPConfig,
         down, res, cfg.sor_neighbors, sor_mult, sv, cfg.knn_normals,
         cfg, seed_origin=seed_origin, device=device)
     if out is None:
-        raise NotImplementedError(
-            "unified SOR + segmentation declined this cloud (fewer than "
-            "4096 points after voxel downsampling, an extreme extent, or "
-            "too many unresolved SOR queries); the staged preprocessing "
-            "fallback is not ported yet (ROADMAP: staged prep)")
+        log.info("unified prep declined %d points: staged path", len(down))
+        return preprocess_cloud(points, res, cfg.sor_neighbors, sor_mult,
+                                device), None
     ps, _nsv, kept = out
     return kept, ps
 
@@ -108,21 +121,25 @@ def prepare_target(points1: Optional[np.ndarray], cfg: PiecewiseICPConfig,
     if prep_state is not None:
         res1, shift = prep_state.resolution, prep_state.shift
         red1 = prep_state.reduced_points
-        sv1 = cfg.svsize1 if cfg.set_res_svsize \
-            else res1 * cfg.sv_size_res_mult
-        patches = build_patches(red1, sv1, cfg, resolution=res1,
-                                lattice_shift=shift,
-                                lattice_offset=lattice_offset, device=dev)
-        return TargetState(shift=shift, reduced_points=red1,
-                           patches=patches, resolution=res1)
-    res1 = resolution if resolution is not None else _resolution(cfg, 1)
-    sv1 = cfg.svsize1 if cfg.set_res_svsize else res1 * cfg.sv_size_res_mult
-    kept, ps_in = _prepare_cloud_unified(points1, cfg, sor_mult, res1, sv1,
-                                         lattice_offset, dev)
-    shift = -kept.astype(np.float64).mean(axis=0)
-    red1 = (kept.astype(np.float64) + shift).astype(np.float32)
-    return TargetState(shift=shift, reduced_points=red1,
-                       patches=ps_in.translated(shift), resolution=res1)
+    else:
+        res1 = resolution if resolution is not None \
+            else _resolution(points1, cfg, 1, dev)
+        kept, ps_in = _prepare_cloud(points1, cfg, sor_mult, res1,
+                                     _sv_size(cfg, res1, 1), lattice_offset,
+                                     dev)
+        shift = -kept.astype(np.float64).mean(axis=0)
+        red1 = (kept.astype(np.float64) + shift).astype(np.float32)
+        if ps_in is not None:
+            return TargetState(shift=shift, reduced_points=red1,
+                               patches=ps_in.translated(shift),
+                               resolution=res1)
+    # the reduction shift maps world -> this frame: anchoring the seed
+    # lattice through it keeps every epoch on one world voxelisation
+    patches = build_patches(red1, _sv_size(cfg, res1, 1), cfg,
+                            resolution=res1, lattice_shift=shift,
+                            lattice_offset=lattice_offset, device=dev)
+    return TargetState(shift=shift, reduced_points=red1, patches=patches,
+                       resolution=res1)
 
 
 @dataclasses.dataclass
@@ -176,13 +193,14 @@ def register_pair(points1: Optional[np.ndarray],
         patches2 = source_state.patches.translated(shift - source_state.shift)
         red2 = patches2.points
     else:
-        res2 = _resolution(cfg, 2)
-        sv2 = cfg.svsize2 if cfg.set_res_svsize \
-            else res2 * cfg.sv_size_res_mult
+        with timer.phase("resolution"):
+            res2 = _resolution(points2, cfg, 2, dev)
         with timer.phase("preprocess"):
-            kept2, ps2_in = _prepare_cloud_unified(
-                points2, cfg, mult, res2, sv2, lattice_offset, dev)
-        patches2 = ps2_in.translated(shift)
+            kept2, ps2_in = _prepare_cloud(
+                points2, cfg, mult, res2, _sv_size(cfg, res2, 2),
+                lattice_offset, dev)
+        # staged path: the core segments the source itself (patches2 None)
+        patches2 = None if ps2_in is None else ps2_in.translated(shift)
         red2 = (kept2.astype(np.float64) + shift).astype(np.float32)
     log.info("source: %d reduced pts | target: %d pts, %d patches",
              len(red2), len(target_state.reduced_points),
@@ -196,7 +214,8 @@ def register_pair(points1: Optional[np.ndarray],
                       @ translation_matrix(-shift))
         red2 = apply_transform_np(red2.astype(np.float64),
                                   t_init_red).astype(np.float32)
-        patches2 = patches2.transformed(t_init_red)
+        if patches2 is not None:
+            patches2 = patches2.transformed(t_init_red)
 
     def _core_run(tstate: TargetState, p2, off):
         with timer.phase("core"):
@@ -220,8 +239,7 @@ def register_pair(points1: Optional[np.ndarray],
         log.info("acceptance guard: stable ratio %.3f < %.2f — running "
                  "%d extra lattice draws", core.stable_ratio,
                  cfg.guard_stable_ratio, cfg.guard_draws - 1)
-        sv1 = (cfg.svsize1 if cfg.set_res_svsize
-               else res1 * cfg.sv_size_res_mult)
+        sv1 = _sv_size(cfg, res1, 1)
         draws = [(core, trans_final)]
 
         def _one_draw(d: int):

@@ -1,11 +1,13 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The kernels live in ``piecewise_icp_torch/csrc/*.cu`` and are compiled at
-first use by ``nvcc`` into ONE shared library with a plain C interface,
-loaded with ``ctypes`` (no PyTorch headers: a build takes seconds, not
-minutes).  The library goes to ``piecewise_icp_torch/_build/<hash>/``,
-keyed by a content hash of the sources and flags, so an edited kernel is
-rebuilt and an unchanged one is reused.
+first use by ``nvcc`` — one process per source, all started together, then
+one link — into ONE shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers: a build takes seconds, not minutes).  The
+library goes to ``piecewise_icp_torch/_build/<hash>/``, keyed by a
+content hash of the sources and flags, so an edited kernel is rebuilt and
+an unchanged one is reused.  The parallel build keeps the build a small
+share of a smoke run's time limit as kernels are added.
 
 Nothing here runs at import time: ``nvcc`` and the GPU are touched only
 when a wrapper is handed a CUDA tensor.
@@ -13,7 +15,8 @@ when a wrapper is handed a CUDA tensor.
 Every wrapper counts its launches in :data:`LAUNCHES` (one per kernel
 launch, nowhere else), and every plain version that is handed a CUDA
 tensor counts in :data:`PLAIN_ON_CUDA`, so a run can show which path its
-work took.
+work took.  Loading and counting are guarded by one lock: the 4D campaign
+prepares the next epoch on a worker thread while the current pair runs.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import pathlib
 import shutil
 import subprocess
 import tempfile
+import threading
 
 import torch
 
@@ -37,9 +41,9 @@ LIB_NAME = "libpwicp_torch.so"
 # -fmad=false: no FMA contraction, so squared distances and the VCCS metric
 # round exactly like the plain versions and the JAX reference (ties decided
 # by == must agree bit for bit).
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-fmad=false", "-Xptxas",
+                           "-v", "-Xcompiler", "-fPIC"]
 
 LAUNCHES: "collections.Counter[str]" = collections.Counter()
 PLAIN_ON_CUDA: "collections.Counter[str]" = collections.Counter()
@@ -55,22 +59,26 @@ _SIGNATURES = {
     "pwicp_seg_stats": [_P, _I, _I, _F] + _GRID_ARGS + [_P, _P],
     "pwicp_prop_round": [_P, _P, _I, _P, _F, _F, _I] + _GRID_ARGS
     + [_P, _P, _P],
+    "pwicp_nn1_brute": [_P, _P, _I, _P, _P, _I, _P, _P, _P],
 }
 
 _lib: ctypes.CDLL | None = None
+_lock = threading.Lock()
 build_seconds: float | None = None
 build_log: str = ""
 
 
 def reset_counts() -> None:
-    LAUNCHES.clear()
-    PLAIN_ON_CUDA.clear()
+    with _lock:
+        LAUNCHES.clear()
+        PLAIN_ON_CUDA.clear()
 
 
 def note_plain(name: str, t: torch.Tensor) -> None:
     """Record that the plain version ``name`` ran on ``t``'s device."""
     if t.is_cuda:
-        PLAIN_ON_CUDA[name] += 1
+        with _lock:
+            PLAIN_ON_CUDA[name] += 1
 
 
 def sources() -> list[pathlib.Path]:
@@ -111,35 +119,48 @@ def build() -> pathlib.Path:
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
-    with tempfile.NamedTemporaryFile(dir=out.parent, suffix=".so",
-                                     delete=False) as tmp:
-        tmp_path = tmp.name
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-I", str(CSRC),
-                           "-o", tmp_path, *cu],
-                          capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
-    (out.parent / "build.log").write_text(build_log)
-    if proc.returncode != 0:
-        os.unlink(tmp_path)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
-    os.replace(tmp_path, out)
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(tmp, src.stem + ".o")
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o", obj,
+                 str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        logs = [pr.communicate()[0] for pr in procs]
+        failed = [pr.args[-1] for pr in procs if pr.returncode != 0]
+        so = os.path.join(tmp, LIB_NAME)
+        if not failed:
+            link = subprocess.run([nvcc, *ARCH_FLAGS, "-shared", "-o", so,
+                                   *objs], capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                failed.append("link")
+        build_seconds = time.perf_counter() - t0
+        build_log = "".join(logs)
+        (out.parent / "build.log").write_text(build_log)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                               f"{build_log}")
+        os.replace(so, out)
     return out
 
 
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
-    if _lib is None:
-        handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(handle, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = handle
-    return _lib
+    with _lock:
+        if _lib is None:
+            handle = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(handle, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = handle
+        return _lib
 
 
 def launch(name: str, counter: str, *args) -> None:
@@ -148,7 +169,8 @@ def launch(name: str, counter: str, *args) -> None:
     err = getattr(lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
-    LAUNCHES[counter] += 1
+    with _lock:
+        LAUNCHES[counter] += 1
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,

@@ -1,19 +1,24 @@
 """Nearest-neighbour kernels — counterpart of
 ``piecewise_icp_tpu/ops/nn_pallas.py`` (and the brute ``ops/nn.py``).
 
-Two hand-written CUDA kernels (``csrc/range_nn1.cu``, ``csrc/knn_sorted.cu``)
-with a plain PyTorch version of each beside its wrapper:
+Three hand-written CUDA kernels (``csrc/range_nn1.cu``,
+``csrc/knn_sorted.cu``, ``csrc/nn1_brute.cu``) with a plain PyTorch version
+of each beside its wrapper:
 
 * :func:`range_nn1` (K1) — exact 1-NN of moving queries among the
   cell-sorted targets of a :class:`~.grid_nn.CellGrid`;
 * :func:`knn_sorted` (K2) — exact k-NN of the grid's own points (the SOR
-  self-join), ascending, ties to the lowest sorted index.
+  self-join), ascending, ties to the lowest sorted index;
+* :func:`nn1_brute` (K5) — exact 1-NN of every query against the whole
+  target cloud, with optional query and target masks.
 
 A wrapper runs its kernel when handed CUDA tensors and its plain version
 when handed CPU tensors; there is no fallback between the two.  The plain
 versions are chunked brute force, independent of the grid walk by
 construction; both sides agree on every query the contract calls resolved
-(nearest, or k-th nearest, within ``h``).
+(nearest, or k-th nearest, within ``h``).  The brute k-NN distances of
+resolution estimation and the small-cloud SOR (:func:`knn_distances`) are
+plain PyTorch on every device, as the JAX package computes them in XLA.
 
 Distances are coordinate-difference first, ((dx^2 + dy^2) + dz^2) with
 separately rounded products and sums, never the |q|^2 + |t|^2 - 2 q.t
@@ -71,38 +76,26 @@ def nn1_sq(queries: torch.Tensor, targets: torch.Tensor,
     return torch.cat(idx), torch.cat(d2)
 
 
-def nn1(queries: torch.Tensor, targets: torch.Tensor,
-        q_mask: torch.Tensor | None = None,
-        t_mask: torch.Tensor | None = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact 1-NN (counterpart of ``ops/nn.py:nn1``): (idx, Euclidean
-    distance); masked queries get +inf."""
-    idx, d2 = nn1_sq(queries, targets, t_mask)
-    d = torch.sqrt(torch.clamp(d2, min=0.0))
-    if q_mask is not None:
-        d = torch.where(q_mask, d, torch.inf)
-    return torch.clamp(idx, min=0), d
-
-
-def knn(queries: torch.Tensor, targets: torch.Tensor, k: int,
-        q_mask: torch.Tensor | None = None,
-        t_mask: torch.Tensor | None = None
-        ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact k-NN (counterpart of ``ops/nn.py:knn``): (idx [Q, k],
-    distances ascending, ties to the lowest index)."""
-    rows = _chunk_rows(targets.shape[0], targets.device)
-    idx, dist = [], []
+def knn_distances(queries: torch.Tensor, targets: torch.Tensor, k: int,
+                  t_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Distances [Q, k] to the k nearest targets, ascending (inf where
+    fewer than k valid targets exist): the distances of ``ops/nn.py:knn``,
+    by chunked brute force with ``torch.topk``.  Callers use only the
+    distances, so the order of tied indices does not matter."""
+    nt = targets.shape[0]
+    kk = min(k, nt)
+    rows = _chunk_rows(nt, targets.device)
+    out = []
     for s in range(0, queries.shape[0], rows):
         blk = sqdist(queries[s:s + rows, None, :], targets[None, :, :])
         if t_mask is not None:
             blk = torch.where(t_mask[None, :], blk, torch.inf)
-        v, o = torch.sort(blk, dim=1, stable=True)
-        idx.append(o[:, :k])
-        dist.append(torch.sqrt(torch.clamp(v[:, :k], min=0.0)))
-    idx, d = torch.cat(idx), torch.cat(dist)
-    if q_mask is not None:
-        d = torch.where(q_mask[:, None], d, torch.inf)
-    return idx, d
+        v = torch.topk(blk, kk, dim=1, largest=False, sorted=True).values
+        out.append(torch.sqrt(torch.clamp(v, min=0.0)))
+    d = torch.cat(out) if out else queries.new_empty((0, kk))
+    if kk < k:
+        d = torch.nn.functional.pad(d, (0, k - kk), value=torch.inf)
+    return d
 
 
 def self_neighbours(grid: CellGrid) -> torch.Tensor:
@@ -252,3 +245,59 @@ def knn_sorted(grid: CellGrid, q_mask: torch.Tensor, k: int
     resolved = ~q_mask | kth_ok
     d = torch.where(q_mask[:, None], d, torch.inf)
     return idx, d, resolved
+
+
+# ---------------------------------------------------------------------------
+# K5: nn1_brute
+# ---------------------------------------------------------------------------
+
+
+def nn1_brute_plain(queries: torch.Tensor, targets: torch.Tensor,
+                    q_mask: torch.Tensor | None = None,
+                    t_mask: torch.Tensor | None = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain K5: chunked brute 1-NN.  Returns (idx or -1, d2); masked
+    queries and queries without a finite distance give (-1, inf)."""
+    _cuda.note_plain("nn1_brute", queries)
+    idx, d2 = nn1_sq(queries, targets, t_mask)
+    if q_mask is not None:
+        idx = torch.where(q_mask, idx, -1)
+        d2 = torch.where(q_mask, d2, torch.inf)
+    return idx, d2
+
+
+def _nn1_brute_kernel(queries: torch.Tensor, targets: torch.Tensor,
+                      q_mask: torch.Tensor | None = None,
+                      t_mask: torch.Tensor | None = None
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    nq, nt = queries.shape[0], targets.shape[0]
+    dev = targets.device
+    _cuda.check(queries, "queries", torch.float32, (nq, 3), dev)
+    _cuda.check(targets, "targets", torch.float32, (nt, 3), dev)
+    if q_mask is not None:
+        _cuda.check(q_mask, "q_mask", torch.bool, (nq,), dev)
+    if t_mask is not None:
+        _cuda.check(t_mask, "t_mask", torch.bool, (nt,), dev)
+    idx = torch.empty(nq, dtype=torch.int32, device=dev)
+    d2 = torch.empty(nq, dtype=torch.float32, device=dev)
+    _cuda.launch("pwicp_nn1_brute", "nn1_brute", queries.data_ptr(),
+                 None if q_mask is None else q_mask.data_ptr(), nq,
+                 targets.data_ptr(),
+                 None if t_mask is None else t_mask.data_ptr(), nt,
+                 idx.data_ptr(), d2.data_ptr())
+    return idx.long(), d2
+
+
+def nn1_brute(queries: torch.Tensor, targets: torch.Tensor,
+              q_mask: torch.Tensor | None = None,
+              t_mask: torch.Tensor | None = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact 1-NN of every query against the whole target cloud (K5), with
+    the contract of ``ops/nn.py:nn1``: (idx [Q] int64 clamped >= 0,
+    Euclidean distance [Q] f32); ties go to the lowest target index,
+    masked targets are never matched, masked queries get +inf."""
+    if queries.is_cuda:
+        idx, d2 = _nn1_brute_kernel(queries, targets, q_mask, t_mask)
+    else:
+        idx, d2 = nn1_brute_plain(queries, targets, q_mask, t_mask)
+    return torch.clamp(idx, min=0), torch.sqrt(torch.clamp(d2, min=0.0))

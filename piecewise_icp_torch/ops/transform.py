@@ -78,6 +78,25 @@ def apply_transform_np(points: np.ndarray, trans_mat: np.ndarray) -> np.ndarray:
     return pts @ m[:3, :3].T + m[:3, 3]
 
 
+def skew(v: np.ndarray) -> np.ndarray:
+    """[v]x cross-product matrix, sign convention of the adjoint VCM
+    propagation (Registration.cpp:1076-1078)."""
+    x, y, z = [float(a) for a in np.asarray(v).ravel()]
+    return np.array([[0.0, -z, y], [z, 0.0, -x], [-y, x, 0.0]])
+
+
+def adjoint_6x6(trans_mat: np.ndarray) -> np.ndarray:
+    """SE(3) adjoint in the (rot, trans) parameter order of the rigorous
+    VCM chaining: Ad = [[R, 0], [[t]x R, R]] (Registration.cpp:1074-1082)."""
+    m = np.asarray(trans_mat, dtype=np.float64)
+    R = m[:3, :3]
+    ad = np.zeros((6, 6), dtype=np.float64)
+    ad[:3, :3] = R
+    ad[3:, 3:] = R
+    ad[3:, :3] = skew(m[:3, 3]) @ R
+    return ad
+
+
 # ----------------------------------------------------------------------
 # Device (torch)
 # ----------------------------------------------------------------------

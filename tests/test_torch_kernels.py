@@ -99,9 +99,34 @@ def test_prop_round(grid, cuda, adopt):
     assert int(kc) == int(pc)
 
 
+@pytest.mark.parametrize("masked", [False, True])
+def test_nn1_brute(cuda, masked):
+    rng = np.random.default_rng(5)
+    t = terrain_cloud(rng, n_side=100)
+    t[-40:] = t[:40]                                 # exact ties
+    q = terrain_cloud(rng, n_side=90)
+    tt, qq = torch.from_numpy(t).to(cuda), torch.from_numpy(q).to(cuda)
+    tm = qm = None
+    if masked:
+        tm = torch.from_numpy(rng.uniform(size=len(t)) > 0.01).to(cuda)
+        qm = torch.from_numpy(rng.uniform(size=len(q)) > 0.4).to(cuda)
+    n0 = _cuda.LAUNCHES["nn1_brute"]
+    ki, kd2 = nn_cuda._nn1_brute_kernel(qq, tt, qm, tm)
+    assert _cuda.LAUNCHES["nn1_brute"] == n0 + 1
+    pi, pd2 = nn_cuda.nn1_brute_plain(qq, tt, qm, tm)
+    # no FMA on either side: equal ids and squared distances, bit for bit
+    assert bool((ki == pi).all())
+    assert bool((kd2 == pd2).all())
+    none = torch.zeros(len(t), dtype=torch.bool, device=cuda)
+    ki, kd2 = nn_cuda._nn1_brute_kernel(qq, tt, None, none)
+    assert bool((ki == -1).all()) and bool(torch.isinf(kd2).all())
+
+
 def test_wrapper_rejects_bad_operands(grid, cuda):
     qm = torch.ones(grid.n, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         nn_cuda.range_nn1(grid.points.double(), qm, grid)
     with pytest.raises(ValueError):
         nn_cuda.knn_sorted(grid, qm[:-1], 15)
+    with pytest.raises(ValueError):
+        nn_cuda.nn1_brute(grid.points, grid.points, t_mask=qm[:-1])

@@ -1,6 +1,7 @@
 """PyTorch port, nearest-neighbour ops held against the JAX package: the
 plain versions of K1 (range_nn1) and K2 (knn_sorted) against the Pallas
-kernels in interpret mode, the SOR decision, and the brute 1-NN / k-NN.
+kernels in interpret mode, the SOR decision, and the brute 1-NN / k-NN
+distances.
 
 Distance tolerance: XLA on the CPU contracts (dx*dx + dy*dy) + dz*dz into
 fused multiply-adds; the port rounds every product and sum separately
@@ -163,16 +164,19 @@ class TestBrute:
         ji, jd = (np.asarray(a) for a in jnn1(
             jnp.asarray(q), jnp.asarray(t), q_mask=jnp.asarray(qm),
             t_mask=jnp.asarray(tm)))
-        ti, td = (a.numpy() for a in nn_cuda.nn1(
+        ti, td = (a.numpy() for a in nn_cuda.nn1_brute(
             torch.from_numpy(q), torch.from_numpy(t),
             q_mask=torch.from_numpy(qm), t_mask=torch.from_numpy(tm)))
         np.testing.assert_array_max_ulp(td, jd, maxulp=ULP)
         np.testing.assert_array_equal(ti[qm], ji[qm])
-        ki, kd = (np.asarray(a) for a in jknn(
+        # the port's brute k-NN returns the distances only (its callers use
+        # nothing else): equal to JAX's knn distances of unmasked queries
+        _, kd = (np.asarray(a) for a in jknn(
             jnp.asarray(q), jnp.asarray(t), 8, q_mask=jnp.asarray(qm),
             t_mask=jnp.asarray(tm)))
-        tki, tkd = (a.numpy() for a in nn_cuda.knn(
+        tkd = nn_cuda.knn_distances(
             torch.from_numpy(q), torch.from_numpy(t), 8,
-            q_mask=torch.from_numpy(qm), t_mask=torch.from_numpy(tm)))
-        np.testing.assert_array_max_ulp(tkd, kd, maxulp=ULP)
-        np.testing.assert_array_equal(tki[qm], ki[qm])
+            t_mask=torch.from_numpy(tm)).numpy()
+        assert tkd.shape == (700, 8)
+        assert (np.diff(tkd, axis=1) >= 0).all()
+        np.testing.assert_array_max_ulp(tkd[qm], kd[qm], maxulp=ULP)

@@ -172,9 +172,11 @@ def test_port_imports_without_jax():
             sys.modules[name] = None
         import piecewise_icp_torch
         from piecewise_icp_torch.models import pairwise, piecewise_icp
-        from piecewise_icp_torch.ops import nn_cuda, seg_cuda
+        from piecewise_icp_torch.models import chaining, four_d, kalman
+        from piecewise_icp_torch.ops import nn_cuda, preprocess, seg_cuda
         from piecewise_icp_torch import __main__
         assert piecewise_icp_torch.register_pair
+        assert piecewise_icp_torch.piecewise_icp_4d_call
         print("ok")
     """)
     root = pathlib.Path(__file__).resolve().parent.parent

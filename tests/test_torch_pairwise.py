@@ -5,6 +5,7 @@ synthetic pair, and through the reference-style file entry point."""
 
 import itertools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 
@@ -13,6 +14,8 @@ from piecewise_icp_tpu.models.piecewise_icp import \
     piecewise_icp as j_piecewise_icp
 from piecewise_icp_tpu.models.segmentation_device import \
     preprocess_segment_device as j_preprocess_segment_device
+from piecewise_icp_tpu.ops.preprocess import \
+    estimate_resolution as j_estimate_resolution
 from piecewise_icp_tpu.ops.preprocess import \
     voxel_downsample as j_voxel_downsample
 from piecewise_icp_tpu.ops.transform import (apply_transform_np,
@@ -109,6 +112,37 @@ def test_out_of_slice_paths_raise(pair):
     c1, c2, _ = pair
     for over in (dict(icp_variant="symmetric"),
                  dict(icp_weighting="inverse_variance"),
-                 dict(change_screen=True), dict(set_res_svsize=False)):
+                 dict(change_screen=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             register_pair(c1, c2, small_test_config(**over), device="cpu")
+
+
+def test_auto_resolution_and_dtinit_match_jax(rng):
+    """``isSetResSVsize: 0`` and ``isSetDTinit: 0``: the port estimates
+    both resolutions and the initial DT itself; the JAX device branch is
+    given its own estimated resolutions (SV size 10 x res).  4,900 points
+    a cloud: above the unified path's floor after voxelisation."""
+    c1, c2, t_true = make_pair(rng, PARAMS, n_side=70)
+    over = dict(guard_enabled=False, set_dtinit=False)
+    got = register_pair(c1, c2, small_test_config(set_res_svsize=False,
+                                                  **over), device="cpu")
+    r1, r2 = (j_estimate_resolution(jnp.asarray(c)) for c in (c1, c2))
+    ref = jax_device_branch(c1, c2, small_test_config(
+        res1=r1, res2=r2, svsize1=10 * r1, svsize2=10 * r2, **over))
+    assert got.core.patches1 is not None
+    assert corner_gap(got.trans_mat, ref, c2) < 5e-4
+    for t in (got.trans_mat, ref):
+        disp = truth_residual(t, t_true, c2)
+        assert disp.mean() < 2e-3 and disp.max() < 5e-3
+
+
+def test_staged_prep_pair(rng):
+    """A 3,600-point pair lies under the unified path's 4,096-point floor:
+    the staged path (SOR, then segmentation) registers it."""
+    c1, c2, t_true = make_pair(rng, PARAMS, n_side=60)
+    cfg = small_test_config(guard_enabled=False)
+    assert len(j_voxel_downsample(c1, cfg.res1)) < 4096
+    got = register_pair(c1, c2, cfg, device="cpu")
+    disp = truth_residual(got.trans_mat, t_true, c2)
+    assert disp.mean() < 2e-3 and disp.max() < 5e-3
+    assert got.core.num_patches[0] >= cfg.min_stable_patches
