@@ -4,17 +4,18 @@ PyTorch, with hand-written CUDA kernels for NVIDIA Hopper (H100).
 The port of ``piecewise_icp_tpu`` (JAX/Pallas for TPU), which stays in the
 repository as the reference.  It follows the reference's TPU branch on
 every device; on the CPU the kernels' plain PyTorch versions run in their
-place.  It imports no JAX, and of the JAX package only the JAX-free
-``config``, ``io``, ``native`` and ``utils`` modules.
+place.  It imports neither JAX nor anything of the JAX package: its
+``config``, ``io`` and ``utils`` are its own copies.  Every entry point
+runs on the card (``device="cuda"``) unless the caller names another
+device, and raises when no GPU is visible.
 
 >>> import piecewise_icp_torch as pwt
->>> pwt.piecewise_icp_pair_call("config_pair.txt", "results/PairReg/",
-...                             device="cuda")
+>>> pwt.piecewise_icp_pair_call("config_pair.txt", "results/PairReg/")
 >>> pwt.piecewise_icp_4d_call("config_4d.txt", start_epoch=0, epoch_num=20,
-...                           pair_mode=-1, device="cuda")
+...                           pair_mode=-1)
 """
 
-from piecewise_icp_tpu.config import ConfigError, PiecewiseICPConfig
+from .config import ConfigError, PiecewiseICPConfig
 
 from . import device as _device  # noqa: F401  (sets float32 precision)
 

@@ -1,8 +1,9 @@
 """Device resolution and numeric precision for the PyTorch port.
 
-Every entry point takes an explicit ``device``; nothing here sets a global
-default device.  ``"cuda"`` requires a visible GPU and raises otherwise —
-there is no silent downgrade to the CPU.
+Every entry point takes a ``device`` whose default is ``"cuda"``; nothing
+here sets a global default device.  ``"cuda"`` requires a visible GPU and
+raises otherwise — there is no silent downgrade to the CPU; the plain
+versions run only for a caller who names ``"cpu"``.
 
 TF32 is switched off for matrix products and convolutions: it keeps ~3
 decimal digits, which silently breaks millimetre geometry at metre scale.

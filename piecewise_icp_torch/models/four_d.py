@@ -26,10 +26,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from piecewise_icp_tpu.config import PiecewiseICPConfig
-from piecewise_icp_tpu.io import formats, read_pcd, scan_epoch_folder
-from piecewise_icp_tpu.utils.errors import PwICPError
-from piecewise_icp_tpu.utils.logging import PhaseTimer, log
+from ..config import PiecewiseICPConfig
+from ..io import formats, read_pcd, scan_epoch_folder
+from ..utils.errors import PwICPError
+from ..utils.logging import PhaseTimer, gphase, log
 
 from ..device import resolve_device
 from ..ops.grid_nn import CellGrid, build_grid
@@ -54,7 +54,7 @@ def _load_cloud_cached(path: str) -> np.ndarray:
 
 def adaptive_pair_sequence(file_list: Sequence[str], start_epoch: int,
                            dt_init: float, ratio_thd: float,
-                           device: "str | torch.device" = "cpu"
+                           device: "str | torch.device" = "cuda"
                            ) -> Tuple[Dict[int, int], Dict[int, float]]:
     """Adaptive registration-pair planning (``calAdaptivePairSequence``,
     Registration.cpp:552-589).
@@ -99,8 +99,11 @@ def adaptive_pair_sequence(file_list: Sequence[str], start_epoch: int,
         ratio = 0.0
         for t in range(idx_target, j):
             tgt = cloud(t)
-            ratio = (overlap_ratio(tgt, src, dt_init) if grids[t] is None
-                     else overlap_ratio_grid(grids[t], src, dt_init))
+            if grids[t] is None:
+                with gphase("plan.overlap_brute"):
+                    ratio = overlap_ratio(tgt, src, dt_init)
+            else:
+                ratio = overlap_ratio_grid(grids[t], src, dt_init)
             idx_target = t
             if ratio > ratio_thd:
                 break
@@ -133,7 +136,7 @@ def piecewise_icp_4d_call(confile: str, start_epoch: int, epoch_num: int,
                           ground_truth: Optional[str] = None,
                           shard_index: int = 0, shard_count: int = 1,
                           resume: bool = False, finalize: bool = True,
-                          device: "str | torch.device" = "cpu",
+                          device: "str | torch.device" = "cuda",
                           **overrides) -> bool:
     """Equivalent of the reference C ABI entry ``PiecewiseICP_4D_call``
     (Registration.h:36), on ``device``."""
@@ -161,7 +164,7 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
            ground_truth: Optional[str] = None,
            shard_index: int = 0, shard_count: int = 1,
            resume: bool = False, finalize: bool = True,
-           device: "str | torch.device" = "cpu") -> bool:
+           device: "str | torch.device" = "cuda") -> bool:
     """Run the 4D campaign on ``device``, optionally as one shard of an
     epoch fleet.
 

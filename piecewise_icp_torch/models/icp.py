@@ -25,6 +25,7 @@ import torch
 
 from ..ops.nn_cuda import sqdist
 from ..ops.transform import params_to_matrix_torch
+from ..utils.logging import log
 
 
 def _masked_nn(q: torch.Tensor, q_mask: torch.Tensor,
@@ -125,7 +126,6 @@ def compute_vcm(target: np.ndarray, target_normals: np.ndarray,
     n = a.shape[0]
     ata = a.T @ a
     if abs(np.linalg.det(ata)) < 1e-9:
-        from piecewise_icp_tpu.utils.logging import log
         log.warning("VCM normal matrix is near-singular")
     qxx = np.linalg.inv(ata)
     x = qxx @ (a.T @ l)

@@ -6,8 +6,9 @@ grid + SOR) and segment both clouds — on one shared grid each (the unified
 path), or, for clouds the unified path declines, SOR then segmentation
 (the staged path) — reduce to the target centroid, run the Piecewise-ICP
 core, de-reduce the transform, optionally re-roll hard pairs (acceptance
-guard), write the reports.  Every entry point takes an explicit
-``device``.
+guard), write the reports.  Every entry point runs on ``device``, the card
+(``"cuda"``) unless the caller names another; without a visible GPU that
+default raises.
 """
 
 from __future__ import annotations
@@ -19,10 +20,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from piecewise_icp_tpu.config import PiecewiseICPConfig
-from piecewise_icp_tpu.io import formats, read_pcd, write_pcd
-from piecewise_icp_tpu.utils.errors import PwICPError
-from piecewise_icp_tpu.utils.logging import PhaseTimer, log
+from ..config import PiecewiseICPConfig
+from ..io import formats, read_pcd, write_pcd
+from ..utils.errors import PwICPError
+from ..utils.logging import PhaseTimer, gphase, log
 
 from ..device import resolve_device
 from ..ops.preprocess import (estimate_resolution, preprocess_cloud,
@@ -83,8 +84,6 @@ def _prepare_cloud(points: np.ndarray, cfg: PiecewiseICPConfig,
     cloud (fewer than 4,096 points after voxelisation, an extreme extent,
     too many unresolved SOR queries): the staged ``preprocess_cloud`` then
     runs and the caller segments the kept points itself."""
-    from piecewise_icp_tpu.utils.logging import gphase
-
     with gphase("prep.voxel"):
         down = voxel_downsample(points, res)
     seed_origin = None
@@ -110,7 +109,7 @@ def prepare_target(points1: Optional[np.ndarray], cfg: PiecewiseICPConfig,
                    sor_mult: float, resolution: float | None = None,
                    lattice_offset: np.ndarray | None = None,
                    prep_state: "TargetState | None" = None,
-                   device: "str | torch.device" = "cpu") -> TargetState:
+                   device: "str | torch.device" = "cuda") -> TargetState:
     """Preprocess + segment the target cloud once (reduced frame).
 
     ``prep_state``: a previous TargetState of the SAME cloud — reuses its
@@ -166,7 +165,7 @@ def register_pair(points1: Optional[np.ndarray],
                   source_state: Optional[TargetState] = None,
                   lattice_offset: np.ndarray | None = None,
                   initial_transform: np.ndarray | None = None,
-                  device: "str | torch.device" = "cpu"
+                  device: "str | torch.device" = "cuda"
                   ) -> RegistrationOutput:
     """Register cloud2 onto cloud1 (raw input clouds, original frame).
 
@@ -321,7 +320,7 @@ def write_pair_report(out_prefix: "str | pathlib.Path",
 
 
 def piecewise_icp_pair_call(confile: str, outfile: str,
-                            device: "str | torch.device" = "cpu",
+                            device: "str | torch.device" = "cuda",
                             **overrides) -> bool:
     """Equivalent of the reference C ABI entry
     ``PiecewiseICP_pair_call(confile, outfile)``, on ``device``."""

@@ -8,8 +8,9 @@ runs on the host; each iteration is one device step
 LoD, stable/unstable classification, inner point-to-plane ICP, the
 bounding-box convergence metric and, in stage 1, the 75th-percentile C2C
 distance of the stable points through the grid 1-NN kernel (K1) with an
-exact brute rescue of its unresolved queries.  The transform and every
-per-iteration scalar come back to the host in ONE packed fetch.
+exact rescue of its unresolved queries through the brute 1-NN kernel (K5).
+The transform and every per-iteration scalar come back to the host in ONE
+packed fetch.
 
 Only the reference objective (``icp_variant="reference"``) with uniform
 weights is ported; the other variants raise.
@@ -23,13 +24,13 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from piecewise_icp_tpu.config import PiecewiseICPConfig
-from piecewise_icp_tpu.utils.errors import DegenerateGeometryError
-from piecewise_icp_tpu.utils.logging import gphase, log
+from ..config import PiecewiseICPConfig
+from ..utils.errors import DegenerateGeometryError
+from ..utils.logging import gphase, log
 
 from ..device import fetch, resolve_device
 from ..ops.grid_nn import CellGrid, build_grid
-from ..ops.nn_cuda import nn1_sq, range_nn1
+from ..ops.nn_cuda import nn1_brute, range_nn1
 from ..ops.preprocess import percentile_c2c
 from ..ops.transform import (apply_transform, bounding_box_corner_change,
                              masked_aabb, matrix_to_angles, params_to_matrix)
@@ -37,8 +38,8 @@ from .icp import _masked_nn, compute_vcm, point_to_plane_icp
 from .segmentation import PatchSet, build_patches
 
 # Unresolved stable queries of the stage-1 percentile re-measured exactly
-# by brute force in the step (the reference's TPU budget).  Only the
-# unresolved queries are rescued.
+# by the brute 1-NN (K5) in the step (the reference's TPU budget).  Only
+# the unresolved queries are rescued.
 _PCT_RESCUE = 49152
 
 
@@ -110,7 +111,8 @@ def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile):
 
     K1 resolves every stable query whose nearest target lies within the
     grid's h; the unresolved ones (at most ``_PCT_RESCUE``) are re-measured
-    by brute force.  Returns device scalars (d75, exact, n_unresolved)."""
+    by the brute 1-NN (K5).  Returns device scalars (d75, exact,
+    n_unresolved)."""
     _, d, resolved, strict = range_nn1(cloud2, pt_stable, grid)
     bad = pt_stable & ~resolved
     bad_idx = torch.nonzero(bad).squeeze(1)
@@ -119,8 +121,8 @@ def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile):
     rescued = torch.zeros_like(bad)
     if u:
         sel = bad_idx[:u]
-        _, d2 = nn1_sq(cloud2[sel], grid.points)
-        d[sel] = torch.sqrt(torch.clamp(d2, min=0.0))
+        with gphase("core.stage1_rescue", queries=u):
+            _, d[sel] = nn1_brute(cloud2[sel], grid.points)
         rescued[sel] = True
     ok = resolved | ~pt_stable | rescued
     d_ok = torch.where(ok, d, torch.inf)
@@ -322,7 +324,7 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
                   patches2: Optional[PatchSet] = None,
                   lattice_shift: np.ndarray | None = None,
                   lattice_offset: np.ndarray | None = None,
-                  device: "str | torch.device" = "cpu") -> PairResult:
+                  device: "str | torch.device" = "cuda") -> PairResult:
     """Register preprocessed ``cloud2`` onto ``cloud1`` (both centroid-
     reduced host float32 arrays) on ``device``."""
     cfg = cfg or PiecewiseICPConfig()
@@ -332,9 +334,11 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
     if cfg.set_dtinit:
         curr_dt = float(cfg.dt_init)
     else:
-        curr_dt = percentile_c2c(
-            torch.as_tensor(cloud1).to(dev), torch.as_tensor(cloud2).to(dev),
-            cfg.dtinit_percentile) * cfg.dtinit_mult
+        with gphase("core.dtinit"):
+            curr_dt = percentile_c2c(
+                torch.as_tensor(cloud1).to(dev),
+                torch.as_tensor(cloud2).to(dev),
+                cfg.dtinit_percentile) * cfg.dtinit_mult
     log.info("DT initial value = %g m", curr_dt)
 
     sv1 = cfg.svsize1 if cfg.set_res_svsize else res1 * cfg.sv_size_res_mult

@@ -23,7 +23,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from piecewise_icp_tpu.config import PiecewiseICPConfig
+from ..config import PiecewiseICPConfig
 
 from ..ops import segment_ops as seg
 from ..ops.eigh3 import eigvals3, smallest_eigvec3
@@ -161,7 +161,7 @@ def build_patches(points: np.ndarray, sv_resolution: float,
                   resolution: float | None = None,
                   lattice_shift: np.ndarray | None = None,
                   lattice_offset: np.ndarray | None = None,
-                  device: "str | torch.device" = "cpu") -> PatchSet:
+                  device: "str | torch.device" = "cuda") -> PatchSet:
     """Patch pipeline for one preprocessed cloud, on the device
     segmentation path (the reference's TPU branch).
 
@@ -169,7 +169,6 @@ def build_patches(points: np.ndarray, sv_resolution: float,
     world frame when ``cfg.seed_grid_align``; ``lattice_offset`` re-phases
     it (an independent patch draw, used by the acceptance guard).
     """
-    from ..device import resolve_device
     from .segmentation_device import segment_patches_device
 
     cfg = cfg or PiecewiseICPConfig()
@@ -193,5 +192,5 @@ def build_patches(points: np.ndarray, sv_resolution: float,
     ps, _nsv = segment_patches_device(
         pts, sv_resolution, k,
         resolution if resolution else sv_resolution / 10.0, cfg,
-        seed_origin=seed_origin, device=resolve_device(device))
+        seed_origin=seed_origin, device=device)
     return ps

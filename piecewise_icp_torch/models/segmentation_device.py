@@ -18,11 +18,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import fetch
+from ..device import fetch, resolve_device
 from ..ops.grid_nn import CellGrid, build_grid
 from ..ops.preprocess import _SOR_RESCUE, sor_mask_sorted
 from ..ops.seg_cuda import propagate_rounds, seg_stats
-from piecewise_icp_tpu.utils.logging import gphase, log
+from ..utils.logging import gphase, log
 
 _MAX_ROUNDS = 256           # propagation round cap (matches the host twin)
 
@@ -98,11 +98,12 @@ def _compact(labels_in: np.ndarray, trim_in: np.ndarray, valid: np.ndarray,
 def segment_patches_device(points: np.ndarray, sv_resolution: float,
                            k: int, resolution: float, cfg,
                            seed_origin: np.ndarray | None = None,
-                           device: torch.device = torch.device("cpu")):
+                           device: "str | torch.device" = "cuda"):
     """Device segmentation and patch extraction of one (already
     preprocessed) cloud.  Returns (PatchSet, n_supervoxels)."""
     from .segmentation import PatchSet
 
+    device = resolve_device(device)
     pts = np.ascontiguousarray(points, dtype=np.float32)
     n = pts.shape[0]
     k = min(k, max(n, 1))
@@ -140,7 +141,7 @@ def preprocess_segment_device(down: np.ndarray, resolution: float,
                               sor_k: int, sor_mult: float,
                               sv_resolution: float, k: int, cfg,
                               seed_origin: np.ndarray | None = None,
-                              device: torch.device = torch.device("cpu")):
+                              device: "str | torch.device" = "cuda"):
     """SOR + full segmentation over ONE shared grid.
 
     ``down`` is the voxel-downsampled cloud in its input frame; the work
@@ -153,6 +154,7 @@ def preprocess_segment_device(down: np.ndarray, resolution: float,
     """
     from .segmentation import PatchSet
 
+    device = resolve_device(device)
     n = down.shape[0]
     if n < 4096:
         return None

@@ -55,11 +55,13 @@ def sqdist(q: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
         + d[..., 2] * d[..., 2]
 
 
-def nn1_sq(queries: torch.Tensor, targets: torch.Tensor,
-           t_mask: torch.Tensor | None = None
-           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Chunked brute 1-NN: (idx [Q] int64, d2 [Q] f32); ties to the lowest
-    target index, -1 where no finite distance exists."""
+def _nn1_sq(queries: torch.Tensor, targets: torch.Tensor,
+            t_mask: torch.Tensor | None = None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked brute 1-NN, the arithmetic of the plain versions of K1 and
+    K5 (nothing else calls it, so :data:`_cuda.PLAIN_ON_CUDA` sees every
+    use): (idx [Q] int64, d2 [Q] f32); ties to the lowest target index, -1
+    where no finite distance exists."""
     rows = _chunk_rows(targets.shape[0], targets.device)
     idx, d2 = [], []
     for s in range(0, queries.shape[0], rows):
@@ -147,7 +149,7 @@ def range_nn1_plain(queries: torch.Tensor, q_mask: torch.Tensor,
     """Plain K1: chunked brute 1-NN over all grid points.
     Returns (idx into sorted targets or -1, d2); masked queries (inf, -1)."""
     _cuda.note_plain("range_nn1", queries)
-    idx, d2 = nn1_sq(queries, grid.points)
+    idx, d2 = _nn1_sq(queries, grid.points)
     d2 = torch.where(q_mask, d2, torch.inf)
     return torch.where(q_mask, idx, -1), d2
 
@@ -220,9 +222,10 @@ def _knn_sorted_kernel(grid: CellGrid, q_mask: torch.Tensor, k: int
     _cuda.check(q_mask, "q_mask", torch.bool, (n,), dev)
     idx = torch.empty((n, k), dtype=torch.int32, device=dev)
     d2 = torch.empty((n, k), dtype=torch.float32, device=dev)
-    _cuda.launch("pwicp_knn_sorted", "knn_sorted", grid.points.data_ptr(),
-                 q_mask.data_ptr(), n, k, *grid.kernel_args(),
-                 idx.data_ptr(), d2.data_ptr())
+    counter = torch.empty(1, dtype=torch.int32, device=dev)   # per call
+    _cuda.launch("pwicp_knn_sorted", "knn_sorted", q_mask.data_ptr(), k,
+                 *grid.kernel_args(), counter.data_ptr(), idx.data_ptr(),
+                 d2.data_ptr())
     return idx.long(), d2
 
 
@@ -259,7 +262,7 @@ def nn1_brute_plain(queries: torch.Tensor, targets: torch.Tensor,
     """Plain K5: chunked brute 1-NN.  Returns (idx or -1, d2); masked
     queries and queries without a finite distance give (-1, inf)."""
     _cuda.note_plain("nn1_brute", queries)
-    idx, d2 = nn1_sq(queries, targets, t_mask)
+    idx, d2 = _nn1_sq(queries, targets, t_mask)
     if q_mask is not None:
         idx = torch.where(q_mask, idx, -1)
         d2 = torch.where(q_mask, d2, torch.inf)
@@ -278,13 +281,24 @@ def _nn1_brute_kernel(queries: torch.Tensor, targets: torch.Tensor,
         _cuda.check(q_mask, "q_mask", torch.bool, (nq,), dev)
     if t_mask is not None:
         _cuda.check(t_mask, "t_mask", torch.bool, (nt,), dev)
+    # only live queries work: the kernel reads them through this list
+    live = None if q_mask is None \
+        else torch.nonzero(q_mask).squeeze(1).to(torch.int32)
+    nlive = nq if live is None else live.shape[0]
+    tile = _cuda.lib().pwicp_nn1_tile()
+    nt_pad = -(-nt // tile) * tile
+    # scratch of this call (the prefetch thread may be in here too): the
+    # targets as a padded structure of arrays, and the packed minima
+    soa = torch.empty(3 * nt_pad, dtype=torch.float32, device=dev)
+    packed = torch.empty(nq, dtype=torch.int64, device=dev)
     idx = torch.empty(nq, dtype=torch.int32, device=dev)
     d2 = torch.empty(nq, dtype=torch.float32, device=dev)
     _cuda.launch("pwicp_nn1_brute", "nn1_brute", queries.data_ptr(),
-                 None if q_mask is None else q_mask.data_ptr(), nq,
+                 None if live is None else live.data_ptr(), nlive, nq,
                  targets.data_ptr(),
-                 None if t_mask is None else t_mask.data_ptr(), nt,
-                 idx.data_ptr(), d2.data_ptr())
+                 None if t_mask is None else t_mask.data_ptr(), nt, nt_pad,
+                 soa.data_ptr(), packed.data_ptr(), idx.data_ptr(),
+                 d2.data_ptr())
     return idx.long(), d2
 
 

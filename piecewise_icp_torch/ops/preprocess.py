@@ -17,7 +17,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from piecewise_icp_tpu.utils.logging import gphase, log
+from ..device import resolve_device
+from ..utils.logging import gphase, log
 
 from .grid_nn import CellGrid, build_grid
 from .nn_cuda import (_chunk_rows, knn_distances, knn_sorted, nn1_brute,
@@ -174,11 +175,11 @@ def sor_keep_mask_device(down: np.ndarray, resolution: float, sor_k: int,
 
 def preprocess_cloud(points: np.ndarray, resolution: float,
                      sor_k: int = 14, sor_mult: float = 2.7,
-                     device: "torch.device | str" = "cpu") -> np.ndarray:
+                     device: "torch.device | str" = "cuda") -> np.ndarray:
     """Voxel downsample at leaf=resolution, then SOR on ``device`` — the
     staged path (``PCpreprocessing``): the grid SOR above 4,096 points,
     brute k-NN at or below.  Returns a compact host array."""
-    dev = torch.device(device)
+    dev = resolve_device(device)
     with gphase("prep.voxel"):
         down = voxel_downsample(points, resolution)
     with gphase("prep.sor"):

@@ -15,7 +15,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from piecewise_icp_tpu.config import ARC_TO_GON
+from ..config import ARC_TO_GON
 
 
 # ----------------------------------------------------------------------

@@ -17,6 +17,7 @@ from piecewise_icp_tpu.models.segmentation_device import \
 from piecewise_icp_tpu.ops.preprocess import \
     voxel_downsample as j_voxel_downsample
 
+from piecewise_icp_torch.config import config_from_jax
 from piecewise_icp_torch.models.pairwise import TargetState, register_pair
 from piecewise_icp_torch.models.piecewise_icp import piecewise_icp
 from piecewise_icp_torch.models.segmentation import PatchSet
@@ -66,7 +67,8 @@ def test_core_loop_matches_jax(jax_patch_sets):
     args = (p1.points, p2.points, cfg.res1, cfg.res2, cfg)
     ref = j_piecewise_icp(*args, patches1=p1, patches2=p2,
                           lattice_shift=shift)
-    got = piecewise_icp(*args, patches1=PatchSet.from_numpy(p1),
+    got = piecewise_icp(*args[:4], config_from_jax(cfg),
+                        patches1=PatchSet.from_numpy(p1),
                         patches2=PatchSet.from_numpy(p2),
                         lattice_shift=shift, device="cpu")
     assert got.num_patches == ref.num_patches
@@ -91,6 +93,7 @@ def test_register_pair_reuses_carried_states(jax_patch_sets):
     ts = TargetState.from_numpy(shift, p1.points, p1, cfg.res1)
     # the source state is segmented in the SAME frame: delta shift 0
     ss = TargetState.from_numpy(shift, p2.points, p2, cfg.res2)
+    cfg = config_from_jax(cfg)
     out = register_pair(None, None, cfg, target_state=ts, source_state=ss,
                         device="cpu")
     core = piecewise_icp(p1.points, p2.points, cfg.res1, cfg.res2, cfg,

@@ -4,12 +4,14 @@ planning, auto DT-init, the staged path of ~3,600-point epochs, Kalman),
 finalisation byte for byte against the JAX package's from the same pair
 files, epoch-fleet shards and resume, and the ``4d`` command line."""
 
+import inspect
 import os
 import shutil
 import time
 
 import numpy as np
 import pytest
+import torch
 
 from piecewise_icp_tpu.io import formats, write_pcd
 from piecewise_icp_tpu.models import chaining as jchain
@@ -19,6 +21,7 @@ from piecewise_icp_tpu.ops.transform import matrix_to_params_gon, \
     params_to_matrix
 
 from piecewise_icp_torch.__main__ import main as cli_main
+from piecewise_icp_torch.config import config_from_jax
 from piecewise_icp_torch.models import chaining as tchain
 from piecewise_icp_torch.models import four_d
 from piecewise_icp_torch.models import kalman as tkal
@@ -58,7 +61,7 @@ def campaign(series):
     cfg = small_test_config(path1=str(scans), path2=str(out) + os.sep,
                             set_dtinit=False, kalman_enabled=True,
                             kalman_process_noise=1e-6)
-    ok = run_4d(cfg, 0, N_EPOCHS, -1, device="cpu")
+    ok = run_4d(config_from_jax(cfg), 0, N_EPOCHS, -1, device="cpu")
     return ok, out, gt
 
 
@@ -133,14 +136,15 @@ def test_finalisation_matches_jax(campaign, series, tmp_path, mode):
     _, out, _ = campaign
     _, scans, _ = series
     texts = {}
-    for name, fn, kw in (("jax", j_run_4d, {}),
-                         ("torch", run_4d, dict(device="cpu"))):
+    for name, fn, twin, kw in (
+            ("jax", j_run_4d, lambda c: c, {}),
+            ("torch", run_4d, config_from_jax, dict(device="cpu"))):
         d = tmp_path / name
         shutil.copytree(out / "pairs", d / "pairs")
         shutil.copy(out / "RegPairFile.txt", d / "RegPairFile.txt")
         cfg = small_test_config(path1=str(scans), path2=str(d) + os.sep,
                                 kalman_enabled=True)
-        assert fn(cfg, 0, N_EPOCHS, mode, resume=True, **kw)
+        assert fn(twin(cfg), 0, N_EPOCHS, mode, resume=True, **kw)
         texts[name] = {p.name: p.read_bytes() for p in d.glob("*.txt")}
     assert set(texts["torch"]) == set(texts["jax"]) >= set(OUTPUTS)
     for f, want in texts["jax"].items():
@@ -153,8 +157,8 @@ def test_shards_and_resume(series, tmp_path):
     registering anything."""
     root, scans, _ = series
     out = tmp_path / "out_sh"
-    cfg = small_test_config(path1=str(scans), path2=str(out) + os.sep,
-                            guard_enabled=False)
+    cfg = config_from_jax(small_test_config(
+        path1=str(scans), path2=str(out) + os.sep, guard_enabled=False))
     gt_file = str(root / "defined_transformations.txt")
     assert run_4d(cfg, 0, N_EPOCHS, 0, ground_truth=gt_file,
                   shard_index=0, shard_count=2, device="cpu")
@@ -218,3 +222,34 @@ def test_cli_4d_symmetric_icp_out_of_slice(series, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         cli_main(["4d", "--config", str(conf), "--epochs", "3",
                   "--icp-variant", "symmetric", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("fn", [four_d.adaptive_pair_sequence, four_d.run_4d,
+                                four_d.piecewise_icp_4d_call],
+                         ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(fn):
+    """The campaign's entry points run on the card unless the caller names
+    another device."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_call_without_device_raises_without_a_card(series, tmp_path):
+    """No quiet drop to the CPU: where no GPU is visible, a campaign that
+    names no device raises before it writes anything."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default runs on it")
+    _, scans, _ = series
+    out = tmp_path / "out"
+    cfg = config_from_jax(small_test_config(path1=str(scans),
+                                            path2=str(out) + os.sep))
+    conf = tmp_path / "config_4d.txt"
+    cfg.to_reference_file(conf)
+    files = sorted(str(p) for p in scans.glob("*.pcd"))
+    for call in (lambda: run_4d(cfg, 0, N_EPOCHS, -1),
+                 lambda: four_d.piecewise_icp_4d_call(str(conf), 0,
+                                                      N_EPOCHS, -1),
+                 lambda: four_d.adaptive_pair_sequence(files, 0, 0.05,
+                                                       0.75)):
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    assert not out.exists()

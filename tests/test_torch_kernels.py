@@ -65,6 +65,37 @@ def test_knn_sorted(grid, cuda):
     assert bool((kd[kr] == torch.sqrt(pd2[kr])).all())
 
 
+def test_knn_sorted_crowded_cell_and_sentinel(cuda):
+    """One cell crowded beyond the window a block stages in shared memory
+    (the kernel walks it from global memory) on a grid that also holds
+    points moved to the sentinel, whose queries are masked: both branches
+    equal the plain version bit for bit."""
+    rng = np.random.default_rng(6)
+    pts = terrain_cloud(rng, n_side=150).astype(np.float64)
+    pts = (pts - pts.mean(axis=0)).astype(np.float32)
+    h = _seg_h(45, RES)
+    cap = _cuda.lib().pwicp_knn_cap()
+    crowd = pts[len(pts) // 2] + rng.uniform(
+        -0.2 * h, 0.2 * h, (cap + 100, 3)).astype(np.float32)
+    # the crowd spans 0.4 h, so the window of each of its cells holds all
+    # of it: more than the staged cap
+    g = CellGrid.from_index(build_grid(np.concatenate([pts, crowd]), h), cuda)
+    gone = torch.from_numpy(rng.uniform(size=g.n) < 0.01).to(cuda)
+    g = g.with_points(torch.where(gone[:, None],
+                                  torch.tensor(1e30, device=cuda), g.points))
+    qm = ~gone
+    ki, kd, kr = nn_cuda.knn_sorted(g, qm, 15)
+    pi, pd2 = nn_cuda.knn_sorted_plain(_fresh(g), qm, 15)
+    pd = torch.sqrt(pd2)
+    pr = ~qm | (pd[:, -1] <= float(np.float32(h)))
+    assert bool((kr == pr).all())
+    assert bool((ki[kr] == pi[kr]).all())
+    assert bool((kd[kr] == pd[kr]).all())
+    assert bool((ki[gone] == -1).all()) and bool(torch.isinf(kd[gone]).all())
+    got = ki[qm]
+    assert not bool((gone[got.clamp(min=0)] & (got >= 0)).any())
+
+
 def test_seg_stats(grid, cuda):
     qm = torch.ones(grid.n, dtype=torch.bool, device=cuda)
     qm[::11] = False
@@ -120,6 +151,62 @@ def test_nn1_brute(cuda, masked):
     none = torch.zeros(len(t), dtype=torch.bool, device=cuda)
     ki, kd2 = nn_cuda._nn1_brute_kernel(qq, tt, None, none)
     assert bool((ki == -1).all()) and bool(torch.isinf(kd2).all())
+
+
+@pytest.mark.parametrize("shape", ["table", "rescue", "all_masked",
+                                   "under_one_block"])
+def test_nn1_brute_shapes(cuda, shape):
+    """K5 at the shapes of the main path, scaled down: masked queries and
+    targets with duplicates (auto DT-init), a gathered unmasked subset
+    against targets of which some sit at the sentinel (the stage-1 rescue),
+    no live query, and fewer queries than one block."""
+    rng = np.random.default_rng(7)
+    t = terrain_cloud(rng, n_side=120)
+    t[-60:] = t[:60]                                 # exact ties
+    q = terrain_cloud(rng, n_side=110)
+    tm = qm = None
+    if shape == "table":
+        tm = rng.uniform(size=len(t)) > 0.01
+        qm = rng.uniform(size=len(q)) > 0.4
+    elif shape == "rescue":
+        q = q[np.sort(rng.choice(len(q), 4096, replace=False))]
+        t[rng.choice(len(t) - 60, 200, replace=False)] = 1e30
+    elif shape == "all_masked":
+        qm = np.zeros(len(q), bool)
+    else:
+        q = q[:100]
+        tm = rng.uniform(size=len(t)) > 0.01
+    args = [None if a is None else torch.from_numpy(a).to(cuda)
+            for a in (q, t, qm, tm)]
+    n0 = _cuda.LAUNCHES["nn1_brute"]
+    ki, kd2 = nn_cuda._nn1_brute_kernel(*args)
+    assert _cuda.LAUNCHES["nn1_brute"] == n0 + 1
+    pi, pd2 = nn_cuda.nn1_brute_plain(*args)
+    assert bool((ki == pi).all())
+    assert bool((kd2 == pd2).all())
+    if shape == "all_masked":
+        assert bool((ki == -1).all()) and bool(torch.isinf(kd2).all())
+    else:
+        assert bool((args[1][ki[ki >= 0], 0] < 1e29).all())
+
+
+def test_stage1_rescue_launches_k5(grid, cuda):
+    """The stage-1 percentile of the core loop re-measures its unresolved
+    queries through K5, never through a plain version."""
+    from piecewise_icp_torch.models.piecewise_icp import _stage1_percentile
+
+    moved = grid.points + torch.tensor([0.0, 0.0, 3.0 * grid.h], device=cuda)
+    stable = torch.ones(grid.n, dtype=torch.bool, device=cuda)
+    _cuda.reset_counts()
+    d75, exact, n_bad = _stage1_percentile(moved, stable, grid, 0.75)
+    assert 0 < n_bad <= 49152 and bool(exact)
+    assert _cuda.LAUNCHES["nn1_brute"] == 1
+    assert _cuda.LAUNCHES["range_nn1"] == 1
+    assert not _cuda.PLAIN_ON_CUDA
+    _, d = nn_cuda.nn1_brute_plain(moved, grid.points)
+    want = torch.sort(torch.sqrt(d)).values[int(np.float32(grid.n)
+                                                * np.float32(0.75))]
+    assert float(d75) == float(want)
 
 
 def test_wrapper_rejects_bad_operands(grid, cuda):

@@ -180,3 +180,61 @@ class TestBrute:
         assert tkd.shape == (700, 8)
         assert (np.diff(tkd, axis=1) >= 0).all()
         np.testing.assert_array_max_ulp(tkd[qm], kd[qm], maxulp=ULP)
+
+    @pytest.mark.parametrize("form", ["gathered", "all_masked"])
+    def test_rescue_form_matches_jax(self, rng, form):
+        """The brute 1-NN as the stage-1 rescue of the core loop calls it:
+        a gathered subset of the source points against the grid's sorted
+        targets, of which some sit at the 1e30 sentinel and some are exact
+        duplicates; no masks.  Held against the JAX package's chunked
+        minimum (``models/piecewise_icp.py``: 512-row chunks of
+        coordinate-difference squares under ``lax.map``) and its ``nn1``.
+        An all-masked query set gives +inf everywhere."""
+        import jax
+
+        t = _cloud(rng)
+        t[-60:] = t[:60]                                  # exact ties
+        cloud2 = t[:-60] + rng.normal(
+            scale=2e-3, size=(len(t) - 60, 3)).astype(np.float32)
+        cloud2[:60] = t[:60]                   # distance 0 to a tied pair
+        t[rng.choice(len(t) - 120, 40, replace=False) + 60] = 1e30
+        sel = np.sort(rng.choice(len(cloud2), 1024, replace=False))
+        sel[:60] = np.arange(60)
+        q = cloud2[sel]
+        if form == "all_masked":
+            none = torch.zeros(len(q), dtype=torch.bool)
+            i, d = nn_cuda.nn1_brute(torch.from_numpy(q),
+                                     torch.from_numpy(t), q_mask=none)
+            assert torch.isinf(d).all() and (i == 0).all()
+            _, jd = jnn1(jnp.asarray(q), jnp.asarray(t),
+                         q_mask=jnp.zeros(len(q), bool))
+            assert np.isinf(np.asarray(jd)).all()
+            return
+        ti, td = (a.numpy() for a in nn_cuda.nn1_brute(
+            torch.from_numpy(q), torch.from_numpy(t)))
+
+        g_pts = jnp.asarray(t)
+
+        def chunk_min(qc):
+            d2 = jnp.zeros((qc.shape[0], g_pts.shape[0]), qc.dtype)
+            for c in range(3):
+                diff = qc[:, c][:, None] - g_pts[None, :, c]
+                d2 = d2 + diff * diff
+            return jnp.min(d2, axis=1)
+
+        d2min = jax.lax.map(chunk_min,
+                            jnp.asarray(q).reshape(2, 512, 3)).reshape(-1)
+        jd_chunk = np.asarray(jnp.sqrt(jnp.maximum(d2min, 0.0)))
+        ji, jd = (np.asarray(a) for a in jnn1(jnp.asarray(q), g_pts))
+        np.testing.assert_array_max_ulp(td, jd_chunk, maxulp=ULP)
+        np.testing.assert_array_max_ulp(td, jd, maxulp=ULP)
+        assert np.isfinite(td).all()
+        # ids agree off ties (a 2-ulp difference may reorder near-ties)
+        off_tie = ti != ji
+        assert off_tie.mean() <= 0.01
+        np.testing.assert_array_max_ulp(
+            np.linalg.norm(q[off_tie] - t[ti[off_tie]], axis=1),
+            np.linalg.norm(q[off_tie] - t[ji[off_tie]], axis=1), maxulp=4)
+        # exact ties go to the lowest index, the sentinel is never matched
+        np.testing.assert_array_equal(ti[:60], np.arange(60))
+        assert (t[ti, 0] < 1e29).all()

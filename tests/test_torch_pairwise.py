@@ -3,11 +3,13 @@ package's device branch (composed by hand: on the CPU the JAX package's
 own ``register_pair`` takes its native branch), against the truth of a
 synthetic pair, and through the reference-style file entry point."""
 
+import inspect
 import itertools
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from piecewise_icp_tpu.io import formats, write_pcd
 from piecewise_icp_tpu.models.piecewise_icp import \
@@ -23,7 +25,12 @@ from piecewise_icp_tpu.ops.transform import (apply_transform_np,
 
 from piecewise_icp_torch import piecewise_icp_pair_call
 from piecewise_icp_torch.__main__ import main as cli_main
-from piecewise_icp_torch.models.pairwise import register_pair
+from piecewise_icp_torch.config import config_from_jax
+from piecewise_icp_torch.models.pairwise import (prepare_target,
+                                                 register_pair)
+from piecewise_icp_torch.models.piecewise_icp import piecewise_icp
+from piecewise_icp_torch.models.segmentation import build_patches
+from piecewise_icp_torch.ops.preprocess import preprocess_cloud
 
 from util import make_pair, small_test_config
 
@@ -76,7 +83,7 @@ def test_register_pair_matches_jax_device_branch(pair):
     c1, c2, t_true = pair
     cfg = small_test_config(guard_enabled=False)
     ref = jax_device_branch(c1, c2, cfg)
-    got = register_pair(c1, c2, cfg, device="cpu")
+    got = register_pair(c1, c2, config_from_jax(cfg), device="cpu")
     # the two packages agree within 0.5 mm at the source's box corners
     assert corner_gap(got.trans_mat, ref, c2) < 5e-4
     # and both meet the truth bounds of the JAX package's own tests
@@ -114,7 +121,8 @@ def test_out_of_slice_paths_raise(pair):
                  dict(icp_weighting="inverse_variance"),
                  dict(change_screen=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            register_pair(c1, c2, small_test_config(**over), device="cpu")
+            register_pair(c1, c2, config_from_jax(small_test_config(**over)),
+                          device="cpu")
 
 
 def test_auto_resolution_and_dtinit_match_jax(rng):
@@ -124,8 +132,8 @@ def test_auto_resolution_and_dtinit_match_jax(rng):
     a cloud: above the unified path's floor after voxelisation."""
     c1, c2, t_true = make_pair(rng, PARAMS, n_side=70)
     over = dict(guard_enabled=False, set_dtinit=False)
-    got = register_pair(c1, c2, small_test_config(set_res_svsize=False,
-                                                  **over), device="cpu")
+    got = register_pair(c1, c2, config_from_jax(small_test_config(
+        set_res_svsize=False, **over)), device="cpu")
     r1, r2 = (j_estimate_resolution(jnp.asarray(c)) for c in (c1, c2))
     ref = jax_device_branch(c1, c2, small_test_config(
         res1=r1, res2=r2, svsize1=10 * r1, svsize2=10 * r2, **over))
@@ -142,7 +150,55 @@ def test_staged_prep_pair(rng):
     c1, c2, t_true = make_pair(rng, PARAMS, n_side=60)
     cfg = small_test_config(guard_enabled=False)
     assert len(j_voxel_downsample(c1, cfg.res1)) < 4096
-    got = register_pair(c1, c2, cfg, device="cpu")
+    got = register_pair(c1, c2, config_from_jax(cfg), device="cpu")
     disp = truth_residual(got.trans_mat, t_true, c2)
     assert disp.mean() < 2e-3 and disp.max() < 5e-3
     assert got.core.num_patches[0] >= cfg.min_stable_patches
+
+
+def _pair_entry_points():
+    from piecewise_icp_torch.models import (pairwise, piecewise_icp,
+                                            segmentation,
+                                            segmentation_device)
+    from piecewise_icp_torch.ops import preprocess
+
+    return [pairwise.prepare_target, pairwise.register_pair,
+            pairwise.piecewise_icp_pair_call, piecewise_icp.piecewise_icp,
+            segmentation.build_patches,
+            segmentation_device.segment_patches_device,
+            segmentation_device.preprocess_segment_device,
+            preprocess.preprocess_cloud]
+
+
+@pytest.mark.parametrize("fn", _pair_entry_points(),
+                         ids=lambda f: f.__name__)
+def test_entry_points_default_to_the_card(fn):
+    """Every public entry point of the pair path runs on the card unless
+    the caller names another device."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+def test_call_without_device_raises_without_a_card(pair, tmp_path):
+    """No quiet drop to the CPU: where no GPU is visible, a call that names
+    no device raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default runs on it")
+    c1, c2, _ = pair
+    cfg = config_from_jax(small_test_config(
+        path1=str(tmp_path / "Epoch_000.pcd"),
+        path2=str(tmp_path / "Epoch_001.pcd")))
+    write_pcd(cfg.path1, c1)
+    write_pcd(cfg.path2, c2)
+    conf = tmp_path / "config_pair.txt"
+    cfg.to_reference_file(conf)
+    calls = (lambda: register_pair(c1, c2, cfg),
+             lambda: prepare_target(c1, cfg, cfg.sor_std_mult_pair),
+             lambda: piecewise_icp_pair_call(str(conf),
+                                             str(tmp_path / "out_")),
+             lambda: piecewise_icp(c1, c2, cfg.res1, cfg.res2, cfg),
+             lambda: build_patches(c1, cfg.svsize1),
+             lambda: preprocess_cloud(c1, cfg.res1))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+    assert not (tmp_path / "out_TransMatrix.txt").exists()

@@ -19,6 +19,7 @@ from piecewise_icp_tpu.ops.seg_pallas import (_prop_round,
                                               _seg_stats_padded,
                                               propagate_rounds, seg_stats)
 
+from piecewise_icp_torch.config import config_from_jax
 from piecewise_icp_torch.models.segmentation_device import (
     preprocess_segment_device, propagate_seeds)
 from piecewise_icp_torch.ops import seg_cuda
@@ -166,7 +167,8 @@ def test_preprocess_segment_device_matches_jax(rng):
     down = voxel_downsample(pts, res)
     args = (down, res, cfg.sor_neighbors, cfg.sor_std_mult_pair, 10 * res,
             cfg.knn_normals, cfg)
-    ps, nsv, kept = preprocess_segment_device(*args, device=CPU)
+    ps, nsv, kept = preprocess_segment_device(
+        *args[:-1], config_from_jax(cfg), device=CPU)
     jps, jnsv, jkept = j_preprocess_segment_device(*args)
     np.testing.assert_array_equal(kept, jkept)
     assert abs(ps.num_patches - jps.num_patches) <= 0.02 * jps.num_patches
