@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed 0]
+    python3 chip_smoke.py [--seed 0] [--sweep VARIANT ...]
 
 Builds the port's CUDA kernels from ``piecewise_icp_torch/csrc`` (nvcc),
 holds each kernel against its plain PyTorch version at the main path's
 shapes (142,884-point synthetic terrain epochs; the brute 1-NN also at the
-shape of the stage-1 rescue, the self-join k-NN also on a grid with
-sentinel points and one cell crowded beyond its shared-memory window),
-works out each kernel's bound on the card from these inputs, checks
+shape of the stage-1 rescue; the three self-join kernels also on a grid
+with sentinel points and one cell crowded beyond the window a block stages
+in shared memory; the label propagation as one round and as the whole loop
+in one launch, also with the round cap reached before convergence), works
+out each kernel's bound on the card from these inputs, checks
 resolution estimation against a float64 KD-tree, then drives the port's
 two entry points on the card:
 
@@ -30,7 +32,14 @@ JAX or JAX package; the script exits 0 only when every phase passed.  The
 last line of standard output is the JSON summary ``{"ok": true, "device":
 {...}}``; the line before it is the card's name and power limit, and the
 one before that the per-kernel JSON record (launches counted in the 4D
-campaign, which runs all five; times, bounds and errors of this run).
+campaign, which runs all five kernels; times, bounds and errors of this
+run; the whole-loop launch of the label propagation has a row of its own).
+
+``python3 chip_smoke.py --sweep VARIANT [VARIANT ...]`` runs none of the
+above: it times K1-K4 and K4's whole loop at the same shapes, for the
+sources as they are (``base``) or with compile-time constants replaced (for
+example ``kPropCap=256,kSegWarps=8``), and prints one JSON line a variant.
+This is how the staged caps and the warps a block were chosen.
 
 Needs a CUDA device: with none visible it exits non-zero and prints no
 result.
@@ -43,6 +52,7 @@ import collections
 import dataclasses
 import json
 import pathlib
+import re
 import shutil
 import statistics
 import subprocess
@@ -73,6 +83,10 @@ REPLACES = {
                    "piecewise_icp_tpu/ops/seg_pallas.py:282"),
     "nn1_brute": ("piecewise_icp_torch/csrc/nn1_brute.cu",
                   "piecewise_icp_tpu/ops/nn_pallas.py:59"),
+    # the whole loop of K4's rounds in one launch (the reference runs its
+    # two while_loops inside one jitted program)
+    "propagate": ("piecewise_icp_torch/csrc/prop_round.cu",
+                  "piecewise_icp_tpu/ops/seg_pallas.py:490"),
 }
 
 # Peak rates of one NVIDIA H100 SXM (data sheet): 3.35 TB/s of device memory
@@ -85,7 +99,8 @@ PEAK_LANE_OPS_S = 67e12 / 2
 
 # the kernels of the pair path with the default configuration (DTinit
 # set, so no K5)
-PAIR_KERNELS = ("range_nn1", "knn_sorted", "seg_stats", "prop_round")
+PAIR_KERNELS = ("range_nn1", "knn_sorted", "seg_stats", "prop_round",
+                "propagate")
 
 # the 4D campaign: the reference's synthetic series length, random-walk
 # ground truth per step (rotation std 8e-4 rad, translation std 3 mm) plus
@@ -203,6 +218,41 @@ def window_pairs(grid, queries=None, q_mask=None) -> int:
     return int(per_query.sum())
 
 
+def smoke_epochs(seed: int):
+    """The two 142,884-point epochs of the smoke pair, centred on the first
+    (float32)."""
+    from piecewise_icp_torch.utils.synth import make_pair
+
+    c1, c2, _ = make_pair(np.random.default_rng(seed), PARAMS, n_side=N_SIDE,
+                          extent=EXTENT)
+    shift = -c1.astype(np.float64).mean(axis=0)
+    return ((c1.astype(np.float64) + shift).astype(np.float32),
+            (c2.astype(np.float64) + shift).astype(np.float32))
+
+
+def propagation_inputs(grid, q_mask, normals, t2, rounds: int):
+    """K4's operands on ``grid`` as segmentation makes them: the seeds of
+    the live points, the query rows, the metric's constants, and the seed
+    state carried through ``rounds`` propagation rounds of the kernel.
+    Returns (seed_idx, qall, inv_res_04, h2, state)."""
+    import torch
+
+    from piecewise_icp_torch.models.segmentation_device import propagate_seeds
+    from piecewise_icp_torch.ops import seg_cuda
+
+    live = np.flatnonzero(q_mask.cpu().numpy())
+    seeds = live[propagate_seeds(grid.points.cpu().numpy()[live], SV)]
+    seed_idx = torch.from_numpy(seeds.astype(np.int64)).to(grid.points.device)
+    qall = torch.cat([grid.points, normals, t2[:, None],
+                      torch.zeros_like(t2)[:, None]], dim=1).contiguous()
+    inv, h2 = float(0.4 / SV), float(grid.h) * float(grid.h)
+    state = seg_cuda.init_state(grid.points, normals, seed_idx)
+    for _ in range(rounds):
+        state, _ = seg_cuda._prop_round_kernel(grid, qall, q_mask, state, inv,
+                                               h2, False)
+    return seed_idx, qall, inv, h2, state
+
+
 # ---------------------------------------------------------------------------
 # kernel phases
 # ---------------------------------------------------------------------------
@@ -212,19 +262,13 @@ def kernel_phases(seed: int) -> dict:
     """Each kernel against its plain version at main-path shapes."""
     import torch
 
-    from piecewise_icp_torch.models.segmentation_device import (
-        _seg_h, propagate_seeds)
+    from piecewise_icp_torch.models.segmentation_device import _seg_h
     from piecewise_icp_torch.ops import nn_cuda, seg_cuda
     from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
     from piecewise_icp_torch.models.piecewise_icp import _cell_order
-    from piecewise_icp_torch.utils.synth import make_pair
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
-    c1, c2, _ = make_pair(rng, PARAMS, n_side=N_SIDE, extent=EXTENT)
-    shift = -c1.astype(np.float64).mean(axis=0)
-    p1 = (c1.astype(np.float64) + shift).astype(np.float32)
-    p2 = (c2.astype(np.float64) + shift).astype(np.float32)
+    p1, p2 = smoke_epochs(seed)
     n = p1.shape[0]
     log(f"kernel phases: terrain epoch of {n} points (n_side={N_SIDE}, "
         f"extent={EXTENT} m, seed={seed})")
@@ -255,6 +299,10 @@ def kernel_phases(seed: int) -> dict:
     # the self-join's candidates: every grid kernel below meets them all
     pairs = window_pairs(grid)
     n_cells = grid.n_cells
+    cells = grid.cell_starts[:n_cells + 1].long()
+    log(f"self-join grid: {grid.dims} = {n_cells} cells of {h:.6f} m, "
+        f"{int((cells[1:] > cells[:-1]).sum())} occupied; the widest "
+        f"27-cell window holds {int(window_counts(grid).max())} points")
     grid_bytes = 12 * n + 4 * (n_cells + 1)
     # a distance (8) and its comparison with the k-th so far (1) for each
     # candidate, then the order of the k kept (k log2 k comparisons a query)
@@ -270,25 +318,14 @@ def kernel_phases(seed: int) -> dict:
         f"{pairs} candidates in the windows ({pairs / n:.1f} a query); "
         f"kernel {results['knn_sorted']['ms']:.3f} ms, plain (chunked "
         f"brute within h) {results['knn_sorted']['plain_ms']:.3f} ms")
-    k2_crowded_check(p1, h, k2, seed)
 
     # K3: neighbourhood statistics, k = 45
     ks = seg_cuda._seg_stats_kernel(grid, all_q, KNN_NORMALS)
     ps = seg_cuda.seg_stats_plain(fresh(grid), all_q, KNN_NORMALS)
-    require(bool((ks[:, 1] == ps[:, 1]).all()), "K3: t2 differs")
-    require(bool((ks[:, 0] == ps[:, 0]).all()), "K3: counts differ")
-    # sums are taken in another order: relative 1e-5 of each moment's
-    # natural scale (count * h for first moments, count * h^2 for second)
-    cnt = ps[:, 0:1]
-    scale = torch.cat([cnt.expand(-1, 3) * h,
-                       cnt.expand(-1, 6) * h * h], dim=1)
-    dev_m = (ks[:, 2:11] - ps[:, 2:11]).abs()
-    require(bool((dev_m <= 1e-5 * scale + 1e-12).all()),
-            "K3: moment sums differ beyond 1e-5 relative")
-    err = float((ks - ps).abs().max())
+    err, min_dot = stats_check(ks, ps, h, all_q, "K3")
+    require(bool((seg_cuda._seg_stats_kernel(grid, all_q, KNN_NORMALS)
+                  == ks).all()), "K3: two runs gave different bits")
     t2k, nk = ks[:, 1], seg_cuda.normals_from_stats(ks)
-    dots = (nk * seg_cuda.normals_from_stats(ps)).sum(dim=1).abs()
-    require(bool((dots >= 1 - 1e-5).all()), "K3: normals differ")
     results["seg_stats"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: seg_cuda._seg_stats_kernel(grid, all_q,
@@ -301,21 +338,13 @@ def kernel_phases(seed: int) -> dict:
         **bound(grid_bytes + n + 64 * n,
                 10 * pairs + 16 * float(ks[:, 0].sum())))
     log(f"K3 seg_stats k={KNN_NORMALS}: t2 and counts equal, moments within "
-        f"1e-5 relative, normals |n.n'| >= 1-1e-5 (min {float(dots.min()):.8f}"
-        f"); kernel {results['seg_stats']['ms']:.3f} ms, plain (brute "
+        f"1e-5 relative (largest difference {err:.3g}), normals |n.n'| >= "
+        f"1-1e-5 (min {min_dot:.8f}), the same bits in two runs; kernel {results['seg_stats']['ms']:.3f} ms, plain (brute "
         f"neighbours within h) {results['seg_stats']['plain_ms']:.3f} ms")
 
     # K4: one propagation round on a partly propagated state, both modes
-    seeds = propagate_seeds(index.points[:n], SV)
-    seed_idx = torch.from_numpy(seeds.astype(np.int64)).to(dev)
-    qall = torch.cat([grid.points, nk, t2k[:, None],
-                      torch.zeros_like(t2k)[:, None]], dim=1).contiguous()
-    state = seg_cuda.init_state(grid.points, nk, seed_idx)
-    inv = float(0.4 / SV)
-    h2 = float(h) * float(h)
-    for _ in range(3):
-        state, _ = seg_cuda._prop_round_kernel(grid, qall, all_q, state,
-                                               inv, h2, False)
+    seed_idx, qall, inv, h2, state = propagation_inputs(grid, all_q, nk, t2k,
+                                                        3)
     err = 0.0
     for adopt in (False, True):
         sk, ck = seg_cuda._prop_round_kernel(grid, qall, all_q, state, inv,
@@ -338,10 +367,15 @@ def kernel_phases(seed: int) -> dict:
         # candidate (the metric of the candidates kept is not counted)
         **bound(grid_bytes + 32 * n + n + 32 * n + 32 * n + 4,
                 10 * pairs))
-    log(f"K4 prop_round: {len(seeds)} seeds, labels, state rows and change "
+    log(f"K4 prop_round: {len(seed_idx)} seeds, labels, state rows and change "
         f"counts equal in both modes (tolerance 0); kernel "
         f"{results['prop_round']['ms']:.3f} ms, plain (brute neighbours "
         f"within h) {results['prop_round']['plain_ms']:.3f} ms")
+    results["propagate"] = propagate_check(
+        grid, fresh, nk, t2k, all_q, seed_idx, qall, inv, h2,
+        results["prop_round"], grid_bytes + 32 * n + n + 32 * n + 32 * n + 4,
+        10 * pairs)
+    crowded_check(p1, h, k2, seed)
 
     # K1: stage-1 percentile 1-NN, moving source vs static target grid
     index1 = build_grid(p1, 4.0 * RES)
@@ -373,19 +407,139 @@ def kernel_phases(seed: int) -> dict:
     return results
 
 
-def k2_crowded_check(p1: np.ndarray, h: float, k: int, seed: int) -> None:
-    """K2 on a grid that holds sentinel points and one cell crowded beyond
-    the window a block can stage in shared memory: the kernel's walk from
-    global memory runs on the card, and both branches equal the plain
-    version bit for bit."""
+def stats_check(ks, ps, h: float, q_mask, what: str):
+    """K3's rows against the plain version's: t2 and counts equal; the
+    moment sums, taken in another order, within 1e-5 of each moment's
+    natural scale (count * h for first moments, count * h^2 for second);
+    normals |n . n'| >= 1 - 1e-5.  Returns (largest difference, least
+    |n . n'| over the live queries)."""
     import torch
 
-    from piecewise_icp_torch.ops import _cuda, nn_cuda
+    from piecewise_icp_torch.ops import seg_cuda
+
+    require(bool((ks[:, 1] == ps[:, 1]).all()), f"{what}: t2 differs")
+    require(bool((ks[:, 0] == ps[:, 0]).all()), f"{what}: counts differ")
+    cnt = ps[:, 0:1]
+    scale = torch.cat([cnt.expand(-1, 3) * h,
+                       cnt.expand(-1, 6) * h * h], dim=1)
+    dev_m = (ks[:, 2:11] - ps[:, 2:11]).abs()
+    require(bool((dev_m <= 1e-5 * scale + 1e-12).all()),
+            f"{what}: moment sums differ beyond 1e-5 relative")
+    require(bool((ks[:, 11:] == 0).all()), f"{what}: the row's tail is not 0")
+    dots = (seg_cuda.normals_from_stats(ks)
+            * seg_cuda.normals_from_stats(ps)).sum(dim=1).abs()[q_mask]
+    require(bool((dots >= 1 - 1e-5).all()), f"{what}: normals differ")
+    return float((ks - ps).abs().max()), float(dots.min())
+
+
+def propagate_check(grid, fresh, normals, t2, q_mask, seed_idx, qall, inv,
+                    h2, one_round: dict, round_bytes: float,
+                    round_ops: float) -> dict:
+    """K4's whole loop in one launch against the host loop over the plain
+    round (labels and round count, tolerance 0), also with the round cap
+    reached before convergence; its time beside the host loop over the
+    one-round kernel, which reads the change count back every round."""
+    import torch
+
+    from piecewise_icp_torch.ops import _cuda, seg_cuda
+
+    def host_loop(max_rounds: int = 256):
+        state = seg_cuda.init_state(grid.points, normals, seed_idx)
+        rounds, sweep_starts = 0, []
+        for adopt in (False, True):
+            it, changed = 0, 1
+            while changed > 0 and it < max_rounds:
+                if adopt:
+                    sweep_starts.append(state)
+                state, chg = seg_cuda._prop_round_kernel(
+                    grid, qall, q_mask, state, inv, h2, adopt)
+                changed = int(chg)
+                it += 1
+            if not adopt:
+                rounds = it
+        return state, rounds, sweep_starts
+
+    def whole(max_rounds: int = 256):
+        return seg_cuda._propagate_kernel(grid, normals, t2, q_mask, seed_idx,
+                                          SV, max_rounds)
+
+    def plain(max_rounds: int = 256):
+        return seg_cuda.propagate_rounds_plain(
+            fresh(grid), normals, t2, q_mask, seed_idx, SV, max_rounds)
+
+    n0 = dict(_cuda.LAUNCHES)
+    kl, kr = whole()
+    require(_cuda.LAUNCHES["propagate"] == n0.get("propagate", 0) + 1
+            and _cuda.LAUNCHES["prop_round"] == n0.get("prop_round", 0) + 1,
+            "K4 whole loop: not one launch")
+    pl, pr = plain()
+    final, hr, sweep_starts = host_loop()
+    steps = hr + len(sweep_starts)
+    hl = seg_cuda._labels_of(final, q_mask)
+    require(kr == pr == hr, f"K4 whole loop: {kr} rounds, plain {pr}, host "
+            f"loop over the round kernel {hr}")
+    require(bool((kl == pl).all()), "K4 whole loop: labels differ from the "
+            "plain loop's")
+    require(bool((kl == hl).all()), "K4 whole loop: labels differ from the "
+            "host loop's over the round kernel")
+    require(2 < kr < 256, f"K4 whole loop: {kr} rounds")
+    labelled = float((kl >= 0).float().mean())
+    require(labelled > 0.99, f"K4 whole loop: {labelled:.4f} labelled")
+    kl2, kr2 = whole(2)
+    pl2, pr2 = plain(2)
+    require(kr2 == pr2 == 2 and bool((kl2 == pl2).all()),
+            "K4 whole loop, max_rounds=2: differs from the plain loop")
+    require(bool((kl2 != kl).any()),
+            "K4 whole loop, max_rounds=2: the cap changed nothing")
+    # a propagation round meets every candidate of every live query; a
+    # sweep round only those of the queries that enter it unlabelled (no
+    # other row can change), at the same 10 instructions a candidate: the
+    # loop needs the work of kr rounds and of that share of a round
+    sweep_pairs = sum(window_pairs(grid, q_mask=q_mask & ~(s[:, 6] >= 0))
+                      for s in sweep_starts)
+    work = kr + 10 * sweep_pairs / round_ops
+    res = dict(max_abs_err=float((kl - pl).abs().max()),
+               ms=time_ms(whole), plain_ms=time_ms(plain, reps=1),
+               **bound(work * round_bytes, work * round_ops))
+    host_ms = time_ms(host_loop)
+    # a sweep round on the converged state: every query is labelled and
+    # skips its walk, so what is left is the hand-out of the cells, their
+    # run tables and the staging of every window
+    floor_ms = time_ms(lambda: seg_cuda._prop_round_kernel(
+        grid, qall, q_mask, final, inv, h2, True))
+    log(f"K4 propagate, the whole loop in one launch: {kr} rounds and "
+        f"{steps - kr} of the orphan sweep ({sweep_pairs} candidates of the "
+        f"queries it found unlabelled: the work of {work:.4f} rounds), "
+        f"{100 * labelled:.2f}% labelled; "
+        f"labels and round count equal to the plain loop and to the host "
+        f"loop over the round kernel (tolerance 0), also with max_rounds=2; "
+        f"{res['ms']:.3f} ms with one host read, against {host_ms:.3f} ms "
+        f"for the host loop over the round kernel ({steps} launches, a read "
+        f"a round) and {steps} x {one_round['ms']:.3f} = "
+        f"{steps * one_round['ms']:.3f} ms of round kernels; plain loop "
+        f"{res['plain_ms']:.3f} ms; a sweep round on the converged state "
+        f"(cells handed out, run tables, every window staged, no query "
+        f"walked: the floor of a block-a-cell kernel on this grid, its "
+        f"wrapper included) {floor_ms:.3f} ms")
+    return res
+
+
+def crowded_check(p1: np.ndarray, h: float, k: int, seed: int) -> None:
+    """The self-join kernels (K2, K3, K4) on a grid that holds sentinel
+    points and one cell crowded beyond the window a block can stage in
+    shared memory: each kernel's walk from global memory runs on the card,
+    and both branches equal the plain version (K3's moments within their
+    tolerance).  The window of a query is its cell's here: the sentinel
+    points keep their cells and are masked queries."""
+    import torch
+
+    from piecewise_icp_torch.ops import _cuda, nn_cuda, seg_cuda
     from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(seed + 4)
-    cap = _cuda.lib().pwicp_knn_cap()
+    lib = _cuda.lib()
+    cap = max(lib.pwicp_knn_cap(), lib.pwicp_seg_cap(), lib.pwicp_prop_cap())
     centre = p1[len(p1) // 2]
     crowd = centre + rng.uniform(-0.2 * h, 0.2 * h,
                                  (cap + 200, 3)).astype(np.float32)
@@ -398,11 +552,14 @@ def k2_crowded_check(p1: np.ndarray, h: float, k: int, seed: int) -> None:
         gone[:, None], torch.tensor(1e30, device=dev), grid.points))
     qm = ~gone
     widest = int(window_counts(grid).max())
-    require(widest > cap, f"K2 crowded: the widest window holds {widest} "
+    require(widest > cap, f"crowded: the widest window holds {widest} "
             f"points, not more than the staged {cap}")
+
+    def fresh():
+        return dataclasses.replace(grid, _self_nbr=[])
+
     ki, kd, kr = nn_cuda.knn_sorted(grid, qm, k)
-    pi_, pd2 = nn_cuda.knn_sorted_plain(
-        dataclasses.replace(grid, _self_nbr=[]), qm, k)
+    pi_, pd2 = nn_cuda.knn_sorted_plain(fresh(), qm, k)
     torch.cuda.synchronize()
     pd = torch.sqrt(torch.clamp(pd2, min=0.0))
     pr = ~qm | (torch.isfinite(pd[:, -1])
@@ -420,6 +577,39 @@ def k2_crowded_check(p1: np.ndarray, h: float, k: int, seed: int) -> None:
         f"{int(kr.sum())}/{n} resolved, ids and distances equal "
         f"(tolerance 0) on both branches")
 
+    ks = seg_cuda._seg_stats_kernel(grid, qm, KNN_NORMALS)
+    ps = seg_cuda.seg_stats_plain(fresh(), qm, KNN_NORMALS)
+    err, min_dot = stats_check(ks, ps, h, qm, "K3 crowded")
+    masked_row = torch.zeros(16, device=dev)
+    masked_row[1] = float(h) * float(h)
+    require(bool((ks[gone] == masked_row).all()),
+            "K3 crowded: a masked query's row is not (0, h^2, 0, ...)")
+    log(f"K3 seg_stats, crowded: t2 and counts equal, moments within 1e-5 "
+        f"relative (largest difference {err:.3g}), normals min |n.n'| "
+        f"{min_dot:.8f}, masked rows (0, h^2, 0...) on both branches")
+
+    t2, nrm = ks[:, 1], seg_cuda.normals_from_stats(ks)
+    seed_idx, qall, inv, h2, state = propagation_inputs(grid, qm, nrm, t2, 2)
+    for adopt in (False, True):
+        sk, ck = seg_cuda._prop_round_kernel(grid, qall, qm, state, inv, h2,
+                                             adopt)
+        sp, cp = seg_cuda.prop_round_plain(fresh(), qall, qm, state, inv, h2,
+                                           adopt)
+        require(bool((sk == sp).all()),
+                f"K4 crowded (adopt={adopt}): state rows differ")
+        require(int(ck) == int(cp), f"K4 crowded (adopt={adopt}): change "
+                f"counts {int(ck)} != {int(cp)}")
+    kl, kr4 = seg_cuda._propagate_kernel(grid, nrm, t2, qm, seed_idx, SV, 256)
+    pl, pr4 = seg_cuda.propagate_rounds_plain(fresh(), nrm, t2, qm, seed_idx,
+                                              SV, 256)
+    require(kr4 == pr4 and bool((kl == pl).all()),
+            "K4 crowded: the whole loop differs from the plain loop")
+    require(bool((kl[gone] == -1).all()),
+            "K4 crowded: a masked query was labelled")
+    log(f"K4 prop_round, crowded: state rows and change counts of a round "
+        f"equal in both modes, the whole loop's labels and {kr4} rounds "
+        f"equal to the plain loop's (tolerance 0) on both branches")
+
 
 def k5_phase(seed: int) -> dict:
     """K5 against its plain version on the pair's two reduced epochs, with
@@ -432,14 +622,9 @@ def k5_phase(seed: int) -> dict:
     from piecewise_icp_torch.ops import nn_cuda
     from piecewise_icp_torch.ops.preprocess import (percentile_c2c,
                                                     percentile_of)
-    from piecewise_icp_torch.utils.synth import make_pair
 
     dev = torch.device("cuda")
-    rng = np.random.default_rng(seed)
-    c1, c2, _ = make_pair(rng, PARAMS, n_side=N_SIDE, extent=EXTENT)
-    shift = -c1.astype(np.float64).mean(axis=0)
-    t_np = (c1.astype(np.float64) + shift).astype(np.float32)
-    q_np = (c2.astype(np.float64) + shift).astype(np.float32)
+    t_np, q_np = smoke_epochs(seed)
     mrng = np.random.default_rng(seed + 1)
     dup = mrng.choice(len(t_np) - 100, 100, replace=False)
     t_np[-100:] = t_np[dup]                          # 100 exact duplicates
@@ -644,7 +829,7 @@ def staged_pair_phase(seed: int) -> dict:
     launches = dict(_cuda.LAUNCHES)
     require(not _cuda.PLAIN_ON_CUDA,
             f"plain versions ran on CUDA tensors: {dict(_cuda.PLAIN_ON_CUDA)}")
-    for name in ("range_nn1", "seg_stats", "prop_round"):
+    for name in ("range_nn1", "seg_stats", "prop_round", "propagate"):
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the staged path")
     disp = np.linalg.norm(apply_transform_np(
@@ -763,7 +948,7 @@ def sparse_staged_phase(seed: int) -> dict:
     require(launches.get("knn_sorted", 0) >= 4,
             f"sparse staged pair: the staged SOR did not run on the card "
             f"({launches})")
-    for name in ("range_nn1", "seg_stats", "prop_round"):
+    for name in ("range_nn1", "seg_stats", "prop_round", "propagate"):
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the sparse staged pair")
     disp = np.linalg.norm(apply_transform_np(
@@ -826,6 +1011,8 @@ def four_d_phase(seed: int, k5_ms: float) -> dict:
             if r["phase"] == K5_RESCUE_PHASE or r["phase"] in K5_OTHER_PHASES)
         most_rescued = max((r["queries"] for r in GLOBAL_TIMER.records
                             if r["phase"] == K5_RESCUE_PHASE), default=0)
+        n_segmented = sum(r["phase"] == "seg.fused"
+                          for r in GLOBAL_TIMER.records)
         require(ok, "piecewise_icp_4d_call returned False")
         for name in OUTPUTS_4D:
             require((out / name).exists(), f"4d: {name} missing")
@@ -866,6 +1053,20 @@ def four_d_phase(seed: int, k5_ms: float) -> dict:
             f"4d: {n_rescue} stage-1 rescues and {n_other} other calls of "
             f"the brute 1-NN ({dict(k5_calls)}) but "
             f"{launches['nn1_brute']} K5 launches")
+    # label propagation: the whole loop is one launch a cloud, read once
+    require(n_segmented >= N_EPOCHS, f"4d: {n_segmented} clouds segmented "
+            f"for {N_EPOCHS} epochs")
+    require(launches["propagate"] == n_segmented,
+            f"4d: {n_segmented} clouds segmented but "
+            f"{launches['propagate']} whole-loop launches of K4")
+    require(launches["seg_stats"] == n_segmented,
+            f"4d: {n_segmented} clouds segmented but "
+            f"{launches['seg_stats']} K3 launches")
+    log(f"4d: {n_segmented} clouds segmented: {launches['seg_stats']} K3 "
+        f"launches, {launches['propagate']} whole-loop calls of K4 in "
+        f"{launches['prop_round']} K4 launches "
+        f"({launches['prop_round'] / n_segmented:.2f} a cloud, one host read "
+        f"each)")
     require(not plain_on_cuda,
             f"plain versions ran on CUDA tensors: {plain_on_cuda}")
     require(len(set(plan.values())) > 1,
@@ -940,14 +1141,133 @@ def profile_run(run, label: str) -> None:
         f"wall ({100 * busy / max(wall * 1e3, 1e-9):.1f}%; {len(kernels)} "
         f"kernel names; operator and kernel rows summed together: "
         f"{all_rows:.1f} ms)")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+    by_time = sorted(kernels, key=lambda e: -e.self_device_time_total)
+    # the ten longest, and every kernel of the port (its time a launch on
+    # this path, without the wrapper's host work)
+    for e in by_time[:10] + [e for e in by_time[10:]
+                             if e.key.startswith("pwicp::")]:
         log(f"profile {label}:   {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# --sweep: the grid kernels' times with compile-time constants changed
+# ---------------------------------------------------------------------------
+
+
+def patched_sources(variant: str, tmp: pathlib.Path) -> pathlib.Path:
+    """A copy of the kernel sources under ``tmp`` with the variant's
+    ``NAME=VALUE`` items written into ``constexpr int NAME = ...;``; each
+    name has to occur exactly once."""
+    from piecewise_icp_torch.ops import _cuda
+
+    dst = tmp / "csrc"
+    shutil.copytree(_cuda.CSRC, dst)
+    for item in filter(None, variant.split(",")):
+        name, value = item.split("=")
+        pat = re.compile(rf"(constexpr int {re.escape(name)} = )[^;]+;")
+        hits = 0
+        for src in sorted(dst.iterdir()):
+            text, n = pat.subn(rf"\g<1>{int(value)};", src.read_text())
+            if n:
+                src.write_text(text)
+                hits += n
+        if hits != 1:
+            raise SystemExit(f"{name}: {hits} definitions found, expected 1")
+    return dst
+
+
+def kernel_times(variant: str, seed: int) -> dict:
+    """K1-K4 and K4's whole loop at the smoke epoch's shapes, built from the
+    sources as they are (``base``) or with constants replaced.  For each:
+    ``single``, the median of 5 calls between CUDA events (the wrapper's
+    host work included); ``back_to_back``, the mean of 30 calls enqueued
+    without a wait (where a kernel is shorter than its wrapper this measures
+    the wrapper); ``device``, the kernel's own time a call under the
+    profiler.  ``sig`` hashes K3's t2 and counts and K4's labels after
+    three rounds: equal across variants that compute the same function."""
+    import hashlib
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from piecewise_icp_torch.models.piecewise_icp import _cell_order
+    from piecewise_icp_torch.models.segmentation_device import _seg_h
+    from piecewise_icp_torch.ops import _cuda, nn_cuda, seg_cuda
+    from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
+
+    def back_to_back_ms(fn, reps: int = 30) -> float:
+        fn()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+
+    def device_ms(fn, reps: int = 20) -> float:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type != DeviceType.CPU
+                   and e.key.startswith("pwicp::")) / 1e3 / reps
+
+    with tempfile.TemporaryDirectory() as tmp:
+        if variant != "base":
+            _cuda.CSRC = patched_sources(variant, pathlib.Path(tmp))
+            _cuda.BUILD_ROOT = pathlib.Path(tmp) / "_build"
+        _cuda.lib()
+        dev = torch.device("cuda")
+        p1, p2 = smoke_epochs(seed)
+        grid = CellGrid.from_index(build_grid(p1, _seg_h(KNN_NORMALS, RES)),
+                                   dev)
+        all_q = torch.ones(len(p1), dtype=torch.bool, device=dev)
+        ks = seg_cuda._seg_stats_kernel(grid, all_q, KNN_NORMALS)
+        t2, nk = ks[:, 1], seg_cuda.normals_from_stats(ks)
+        seed_idx, qall, inv, h2, state = propagation_inputs(grid, all_q, nk,
+                                                            t2, 3)
+        index1 = build_grid(p1, 4.0 * RES)
+        grid1 = CellGrid.from_index(index1, dev)
+        q1 = torch.from_numpy(p2[_cell_order(p2, index1)]).to(dev)
+        fns = {
+            "range_nn1": lambda: nn_cuda._range_nn1_kernel(q1, all_q, grid1),
+            "knn_sorted": lambda: nn_cuda._knn_sorted_kernel(grid, all_q,
+                                                             SOR_K + 1),
+            "seg_stats": lambda: seg_cuda._seg_stats_kernel(grid, all_q,
+                                                            KNN_NORMALS),
+            "prop_round": lambda: seg_cuda._prop_round_kernel(
+                grid, qall, all_q, state, inv, h2, False),
+            "prop_round_adopt": lambda: seg_cuda._prop_round_kernel(
+                grid, qall, all_q, state, inv, h2, True),
+        }
+        # a tree from before the loop moved onto the card is timed by this
+        # script too (copied into it): it has the rounds only
+        if hasattr(seg_cuda, "_propagate_kernel"):
+            fns["propagate"] = lambda: seg_cuda._propagate_kernel(
+                grid, nk, t2, all_q, seed_idx, SV, 256)
+        sig = hashlib.sha1(ks[:, :2].cpu().numpy().tobytes()
+                           + state[:, 6].cpu().numpy().tobytes()
+                           ).hexdigest()[:12]
+        ms = {name: {"single": time_ms(fn),
+                     "back_to_back": back_to_back_ms(fn),
+                     "device": device_ms(fn)} for name, fn in fns.items()}
+    return {"variant": variant, "card": nvidia_smi_line(), "sig": sig,
+            "ms": ms}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sweep", nargs="+", metavar="VARIANT",
+                    help="time the grid kernels only, one JSON line a "
+                    "variant: 'base', or NAME=VALUE[,NAME=VALUE...] written "
+                    "into the constexpr int constants of a copy of csrc/")
     args = ap.parse_args(argv)
 
     import torch
@@ -956,6 +1276,18 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this "
               "smoke test needs a CUDA device", file=sys.stderr)
         return 2
+    if args.sweep:
+        if len(args.sweep) == 1:
+            print(json.dumps(kernel_times(args.sweep[0], args.seed)),
+                  flush=True)
+            return 0
+        # a process a variant: each loads a library of its own
+        for variant in args.sweep:
+            done = subprocess.run([sys.executable, __file__, "--seed",
+                                   str(args.seed), "--sweep", variant])
+            if done.returncode != 0:
+                return done.returncode
+        return 0
     try:
         import piecewise_icp_torch  # noqa: F401
         from piecewise_icp_torch.ops import _cuda

@@ -30,7 +30,9 @@
 //    barrier is needed between picks;
 //  * cells are handed out in chunks of 32 through an atomic counter (empty
 //    cells cost one coalesced read of the CSR array per chunk), so the
-//    blocks stay busy whatever the occupancy pattern of the grid;
+//    blocks stay busy whatever the occupancy pattern of the grid (the
+//    hand-out, the run table and the staging copy are common.cuh's, shared
+//    with K3 and K4);
 //  * a window too large for the staged tile (kKnnCap points: a crowded
 //    cell, or a cell that collects points moved to the 1e30 sentinel) is
 //    walked from global memory by the same kernel, k rounds of a
@@ -50,7 +52,6 @@ namespace pwicp {
 constexpr int kKnnWarps = 4;     // queries served at a time by a block
 constexpr int kKnnThreads = kKnnWarps * kWarp;
 constexpr int kKnnCap = 512;     // window points staged per block
-constexpr int kKnnChunk = 32;    // cells handed out per atomic
 constexpr unsigned kInfBits = 0x7f800000u;
 constexpr unsigned kNoPos = 0xffffffffu;
 // staged window (x, y, z, sorted index) and a list of (d2 bits, 16-bit
@@ -64,10 +65,6 @@ static_assert(kKnnCap <= 65536, "window positions are kept in 16 bits");
 constexpr int kKnnLaneList = kKnnCap / kWarp;
 static_assert(kKnnLaneList * kWarp == kKnnCap,
               "a lane's list is exactly its share of the staged window");
-
-struct Runs {
-  int s[9], e[9], off[10];
-};
 
 // One query from the staged window.  rv/rp point at this lane's first list
 // entry; entry i lies at [kWarp * i].
@@ -129,16 +126,14 @@ __device__ __forceinline__ void knn_walked(const Runs& runs, int n_runs,
   for (int r = 0; r < k; ++r) {
     float bd = INFINITY;
     int bi = kIMax;
-    for (int u = 0; u < n_runs; ++u) {
-      for (int j = runs.s[u] + lane; j < runs.e[u]; j += kWarp) {
-        float d2 = sqdist(qx, qy, qz, pts + 3 * (size_t)j);
-        bool after = d2 > pd || (d2 == pd && j > pi);
-        if (d2 < INFINITY && after && (d2 < bd || (d2 == bd && j < bi))) {
-          bd = d2;
-          bi = j;
-        }
+    for_each_walked(runs, n_runs, lane, [&](int j) {
+      float d2 = sqdist(qx, qy, qz, pts + 3 * (size_t)j);
+      bool after = d2 > pd || (d2 == pd && j > pi);
+      if (d2 < INFINITY && after && (d2 < bd || (d2 == bd && j < bi))) {
+        bd = d2;
+        bi = j;
       }
-    }
+    });
     warp_argmin(bd, bi);
     if (bi == kIMax) break;  // warp-uniform
     if (lane == r) {
@@ -162,95 +157,49 @@ __global__ void __launch_bounds__(kKnnThreads)
   unsigned* rv_all = reinterpret_cast<unsigned*>(sj + kKnnCap);
   unsigned short* rp_all =
       reinterpret_cast<unsigned short*>(rv_all + (size_t)kKnnWarps * kKnnCap);
-  __shared__ Runs runs;
-  __shared__ int s_base;
-  __shared__ unsigned s_cells;
+  __shared__ CellFeed feed;
+  const Runs& runs = feed.runs;
 
   const int tid = threadIdx.x;
   const int warp = tid / kWarp, lane = tid % kWarp;
   unsigned* rv = rv_all + (size_t)warp * kKnnCap + lane;
   unsigned short* rp = rp_all + (size_t)warp * kKnnCap + lane;
 
-  while (true) {
-    if (tid == 0) s_base = atomicAdd(counter, kKnnChunk);
+  CellCursor cur;
+  int c;
+  while (next_cell(g, counter, feed, cur, &c)) {
+    const int qs = g.starts[c], qe = g.starts[c + 1];
+    const int n_runs = cell_runs(g, c, feed.runs);
+    const int wn = runs.off[n_runs];
+    const bool staged = wn <= kKnnCap;
+    if (staged)
+      for_each_staged(runs, n_runs, [&](int p, int j) {
+        const float* t = g.pts + 3 * (size_t)j;
+        sx[p] = t[0];
+        sy[p] = t[1];
+        sz[p] = t[2];
+        sj[p] = j;
+      });
     __syncthreads();
-    const int c0 = s_base;
-    if (c0 >= g.n_cells) break;  // block-uniform
-    if (warp == 0) {
-      int c = c0 + lane;
-      bool full = c < g.n_cells && g.starts[c + 1] > g.starts[c];
-      unsigned cells = __ballot_sync(kFull, full);
-      if (lane == 0) s_cells = cells;
-    }
-    __syncthreads();
-    unsigned cells = s_cells;  // block-uniform
 
-    while (cells) {
-      const int c = c0 + __ffs(cells) - 1;
-      cells &= cells - 1;
-      const int qs = g.starts[c], qe = g.starts[c + 1];
-      const int cz = c % g.dz, cy = (c / g.dz) % g.dy, cx = c / (g.dz * g.dy);
-      const int x0 = max(cx - 1, 0), x1 = min(cx + 1, g.dx - 1);
-      const int y0 = max(cy - 1, 0), y1 = min(cy + 1, g.dy - 1);
-      const int z0 = max(cz - 1, 0), z1 = min(cz + 1, g.dz - 1);
-      const int ny = y1 - y0 + 1, n_runs = (x1 - x0 + 1) * ny;
-      if (warp == 0) {
-        // runs in (x, y) order, ascending in sorted index; their offsets in
-        // the window by an inclusive scan over the first 16 lanes
-        int rs = 0, re = 0;
-        if (lane < n_runs) {
-          int base = ((x0 + lane / ny) * g.dy + (y0 + lane % ny)) * g.dz;
-          rs = g.starts[min(base + z0, g.n_cells)];
-          re = g.starts[min(base + z1 + 1, g.n_cells)];
-        }
-        int off = re - rs;
-        for (int o = 1; o < 16; o <<= 1) {
-          int v = __shfl_up_sync(kFull, off, o);
-          if (lane >= o) off += v;
-        }
-        if (lane < n_runs) {
-          runs.s[lane] = rs;
-          runs.e[lane] = re;
-          runs.off[lane + 1] = off;
-        }
-        if (lane == 0) runs.off[0] = 0;
+    for (int qi = qs + warp; qi < qe; qi += kKnnWarps) {
+      float my_d = INFINITY;  // lane r holds the r-th nearest
+      int my_j = -1;
+      if (q_mask[qi]) {
+        const float* qp = g.pts + 3 * (size_t)qi;
+        const float qx = qp[0], qy = qp[1], qz = qp[2];
+        if (staged)
+          knn_staged(sx, sy, sz, sj, rv, rp, wn, qx, qy, qz, k, lane, &my_d,
+                     &my_j);
+        else
+          knn_walked(runs, n_runs, g.pts, qx, qy, qz, k, lane, &my_d, &my_j);
       }
-      __syncthreads();
-      const int wn = runs.off[n_runs];
-      const bool staged = wn <= kKnnCap;
-      if (staged) {
-        for (int u = 0; u < n_runs; ++u) {
-          const int s = runs.s[u], len = runs.e[u] - s, o = runs.off[u];
-          for (int i = tid; i < len; i += kKnnThreads) {
-            const float* t = g.pts + 3 * (size_t)(s + i);
-            sx[o + i] = t[0];
-            sy[o + i] = t[1];
-            sz[o + i] = t[2];
-            sj[o + i] = s + i;
-          }
-        }
+      if (lane < k) {
+        out_d2[(size_t)qi * k + lane] = my_d;
+        out_idx[(size_t)qi * k + lane] = my_j;
       }
-      __syncthreads();
-
-      for (int qi = qs + warp; qi < qe; qi += kKnnWarps) {
-        float my_d = INFINITY;  // lane r holds the r-th nearest
-        int my_j = -1;
-        if (q_mask[qi]) {
-          const float* qp = g.pts + 3 * (size_t)qi;
-          const float qx = qp[0], qy = qp[1], qz = qp[2];
-          if (staged)
-            knn_staged(sx, sy, sz, sj, rv, rp, wn, qx, qy, qz, k, lane, &my_d,
-                       &my_j);
-          else
-            knn_walked(runs, n_runs, g.pts, qx, qy, qz, k, lane, &my_d, &my_j);
-        }
-        if (lane < k) {
-          out_d2[(size_t)qi * k + lane] = my_d;
-          out_idx[(size_t)qi * k + lane] = my_j;
-        }
-      }
-      __syncthreads();  // the window and the run table are no longer read
     }
+    __syncthreads();  // the window and the run table are no longer read
   }
 }
 
@@ -269,22 +218,12 @@ extern "C" int pwicp_knn_sorted(const uint8_t* q_mask, int k,
   cudaStream_t st = (cudaStream_t)stream;
   if (k < 1 || k > kWarp) return (int)cudaErrorInvalidValue;
   if (n_cells <= 0) return (int)cudaGetLastError();
-  cudaError_t err = cudaFuncSetAttribute(
-      knn_sorted_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)kKnnSmem);
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, knn_sorted_kernel, kKnnThreads, kKnnSmem);
-  if (err == cudaSuccess && per_sm < 1) err = cudaErrorLaunchOutOfResources;
+  int blocks = 0;
+  cudaError_t err = cell_blocks(knn_sorted_kernel, kKnnThreads, kKnnSmem,
+                                n_cells, &blocks);
   if (err == cudaSuccess) err = cudaMemsetAsync(counter, 0, sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
   Grid g = make_grid(pts, starts, n_cells, ox, oy, oz, h, dx, dy, dz);
-  int chunks = (n_cells + kKnnChunk - 1) / kKnnChunk;
-  int blocks = chunks < sms * per_sm ? chunks : sms * per_sm;
   knn_sorted_kernel<<<blocks, kKnnThreads, kKnnSmem, st>>>(g, q_mask, k,
                                                            counter, out_idx,
                                                            out_d2);

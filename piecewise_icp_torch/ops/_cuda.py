@@ -22,6 +22,7 @@ prepares the next epoch on a worker thread while the current pair runs.
 from __future__ import annotations
 
 import collections
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -56,12 +57,16 @@ _GRID_ARGS = [_P, _P, _I, _F, _F, _F, _F, _I, _I, _I]
 _SIGNATURES = {
     "pwicp_range_nn1": [_P, _P, _I] + _GRID_ARGS + [_P, _P, _P],
     "pwicp_knn_sorted": [_P, _I] + _GRID_ARGS + [_P, _P, _P, _P],
-    "pwicp_seg_stats": [_P, _I, _I, _F] + _GRID_ARGS + [_P, _P],
-    "pwicp_prop_round": [_P, _P, _I, _P, _F, _F, _I] + _GRID_ARGS
-    + [_P, _P, _P],
+    "pwicp_seg_stats": [_P, _I, _F] + _GRID_ARGS + [_P, _P, _P],
+    "pwicp_prop_round": [_P, _P, _P, _F, _F, _I] + _GRID_ARGS + [_P, _P, _P],
+    "pwicp_propagate": [_P, _P, _I, _P, _P, _I, _I, _F, _F, _I] + _GRID_ARGS
+    + [_P, _P, _P, _P, _P, _P],
+    "pwicp_propagate_ctrl": [_I],
     "pwicp_nn1_brute": [_P, _P, _I, _I, _P, _P, _I, _I, _P, _P, _P, _P, _P],
     "pwicp_nn1_tile": [],
     "pwicp_knn_cap": [],
+    "pwicp_seg_cap": [],
+    "pwicp_prop_cap": [],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -165,20 +170,28 @@ def lib() -> ctypes.CDLL:
         return _lib
 
 
-def launch(name: str, counter: str, *args) -> None:
-    """Call C entry ``name`` on the current stream; raise on a launch error."""
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(lib(), name)(*args, stream)
+def launch(name: str, counters: "str | tuple[str, ...]", *args,
+           device: torch.device) -> None:
+    """Call C entry ``name`` on ``device`` (that of the operands), on its
+    current stream; raise on a launch error.  Each of ``counters`` gains
+    one."""
+    here = device.index in (None, torch.cuda.current_device())
+    with contextlib.nullcontext() if here else torch.cuda.device(device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib(), name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {err}")
     with _lock:
-        LAUNCHES[counter] += 1
+        for c in (counters,) if isinstance(counters, str) else counters:
+            LAUNCHES[c] += 1
 
 
 def check(t: torch.Tensor, name: str, dtype: torch.dtype,
-          shape: tuple | None = None, device: torch.device | None = None
-          ) -> None:
-    """Validate a kernel operand (CUDA, dtype, shape, contiguity)."""
+          shape: tuple | None = None, device: torch.device | None = None,
+          contiguous: bool = True) -> None:
+    """Validate a kernel operand (CUDA, dtype, shape, contiguity; a
+    wrapper whose kernel reads the operand by its stride waives the
+    last)."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -188,5 +201,5 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype,
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                          f"got {tuple(t.shape)}")
-    if not t.is_contiguous():
+    if contiguous and not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")

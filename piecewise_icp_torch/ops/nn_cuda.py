@@ -164,7 +164,7 @@ def _range_nn1_kernel(queries: torch.Tensor, q_mask: torch.Tensor,
     d2 = torch.empty(n, dtype=torch.float32, device=dev)
     _cuda.launch("pwicp_range_nn1", "range_nn1", queries.data_ptr(),
                  q_mask.data_ptr(), n, *grid.kernel_args(),
-                 idx.data_ptr(), d2.data_ptr())
+                 idx.data_ptr(), d2.data_ptr(), device=dev)
     return idx.long(), d2
 
 
@@ -225,7 +225,7 @@ def _knn_sorted_kernel(grid: CellGrid, q_mask: torch.Tensor, k: int
     counter = torch.empty(1, dtype=torch.int32, device=dev)   # per call
     _cuda.launch("pwicp_knn_sorted", "knn_sorted", q_mask.data_ptr(), k,
                  *grid.kernel_args(), counter.data_ptr(), idx.data_ptr(),
-                 d2.data_ptr())
+                 d2.data_ptr(), device=dev)
     return idx.long(), d2
 
 
@@ -298,7 +298,7 @@ def _nn1_brute_kernel(queries: torch.Tensor, targets: torch.Tensor,
                  targets.data_ptr(),
                  None if t_mask is None else t_mask.data_ptr(), nt, nt_pad,
                  soa.data_ptr(), packed.data_ptr(), idx.data_ptr(),
-                 d2.data_ptr())
+                 d2.data_ptr(), device=dev)
     return idx.long(), d2
 
 

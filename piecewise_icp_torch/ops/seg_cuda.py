@@ -10,8 +10,11 @@ with a plain PyTorch version of each beside its wrapper:
   eigensolve -> normals;
 * :func:`prop_round` (K4) — one synchronous round of seeded label
   propagation under the VCCS metric, or of the orphan sweep (``adopt``);
-  :func:`propagate_rounds` runs it to convergence (<= 256 rounds), then
-  the sweep.
+  :func:`propagate_rounds` runs the rounds to convergence (<= 256), then
+  the sweep: on the card the whole loop is ONE cooperative launch of K4
+  with a grid-wide barrier between the rounds and one device-to-host read
+  at its end; on the CPU a host loop over the plain round
+  (:func:`propagate_rounds_plain`).
 
 A wrapper runs its kernel when handed CUDA tensors and its plain version
 when handed CPU tensors.  The plain versions work on brute-force neighbour
@@ -94,8 +97,10 @@ def _seg_stats_kernel(grid: CellGrid, q_mask: torch.Tensor, k: int
     dev = grid.points.device
     _cuda.check(q_mask, "q_mask", torch.bool, (n,), dev)
     out = torch.empty((n, _STATS), dtype=torch.float32, device=dev)
-    _cuda.launch("pwicp_seg_stats", "seg_stats", q_mask.data_ptr(), n, k,
-                 grid.h * grid.h, *grid.kernel_args(), out.data_ptr())
+    counter = torch.empty(1, dtype=torch.int32, device=dev)   # per call
+    _cuda.launch("pwicp_seg_stats", "seg_stats", q_mask.data_ptr(), k,
+                 grid.h * grid.h, *grid.kernel_args(), counter.data_ptr(),
+                 out.data_ptr(), device=dev)
     return out
 
 
@@ -198,12 +203,13 @@ def _prop_round_kernel(grid: CellGrid, qall: torch.Tensor,
     _cuda.check(q_mask, "q_mask", torch.bool, (n,), dev)
     _cuda.check(state, "state", torch.float32, (n, 8), dev)
     out = torch.empty((n, 8), dtype=torch.float32, device=dev)
-    changed = torch.zeros((), dtype=torch.int32, device=dev)
+    # per call: the cell hand-out counter, then the change count
+    scratch = torch.empty(2, dtype=torch.int32, device=dev)
     _cuda.launch("pwicp_prop_round", "prop_round", qall.data_ptr(),
-                 q_mask.data_ptr(), n, state.data_ptr(), inv_res_04, h2,
+                 q_mask.data_ptr(), state.data_ptr(), inv_res_04, h2,
                  int(adopt), *grid.kernel_args(), out.data_ptr(),
-                 changed.data_ptr())
-    return out, changed
+                 scratch.data_ptr(), device=dev)
+    return out, scratch[1]
 
 
 def prop_round(grid: CellGrid, qall: torch.Tensor, q_mask: torch.Tensor,
@@ -222,6 +228,13 @@ def prop_round(grid: CellGrid, qall: torch.Tensor, q_mask: torch.Tensor,
     return prop_round_plain(grid, qall, q_mask, state, inv_res_04, h2, adopt)
 
 
+# The three helpers below are the plain reference of what the whole-loop
+# launch does before its first round and after its last (``propagate_kernel``
+# in ``csrc/prop_round.cu``); they serve the plain loop and the checks of the
+# one-round kernel.  A change to the row layout or to the label conversion is
+# made in both places.
+
+
 def init_state(points: torch.Tensor, normals: torch.Tensor,
                seed_idx: torch.Tensor) -> torch.Tensor:
     """Seed state rows: seeds carry their own position, normal and slot id
@@ -235,31 +248,88 @@ def init_state(points: torch.Tensor, normals: torch.Tensor,
     return state
 
 
-def propagate_rounds(grid: CellGrid, normals: torch.Tensor, r2: torch.Tensor,
-                     q_mask: torch.Tensor, seed_idx: torch.Tensor,
-                     sv_resolution: float, max_rounds: int = 256
-                     ) -> Tuple[torch.Tensor, int]:
-    """Seeded metric label propagation to convergence (<= ``max_rounds``),
-    then the orphan sweep.  Returns (labels [n] int64 in SORTED order =
-    seed slot ids, -1 unlabelled; propagation rounds).  One scalar
-    device-to-host read per round decides the loop."""
+def _propagation_inputs(grid: CellGrid, normals: torch.Tensor,
+                        r2: torch.Tensor, seed_idx: torch.Tensor,
+                        sv_resolution: float
+                        ) -> Tuple[torch.Tensor, torch.Tensor, float, float]:
+    """(qall [n, 8], seed state [n, 8], inv_res_04, h2) of a propagation."""
     pts = grid.points
     qall = torch.cat([pts, normals.to(torch.float32),
                       r2.to(torch.float32)[:, None],
                       torch.zeros_like(r2, dtype=torch.float32)[:, None]],
                      dim=1).contiguous()
-    state = init_state(pts, normals, seed_idx)
-    inv = float(0.4 / sv_resolution)
-    h2 = float(grid.h) * float(grid.h)
+    return (qall, init_state(pts, normals, seed_idx),
+            float(0.4 / sv_resolution), float(grid.h) * float(grid.h))
+
+
+def _labels_of(state: torch.Tensor, q_mask: torch.Tensor) -> torch.Tensor:
+    lab = state[:, 6]
+    lab = torch.where(torch.isfinite(lab) & (lab >= 0), lab, -1.0).long()
+    return torch.where(q_mask, lab, -1)
+
+
+def propagate_rounds_plain(grid: CellGrid, normals: torch.Tensor,
+                           r2: torch.Tensor, q_mask: torch.Tensor,
+                           seed_idx: torch.Tensor, sv_resolution: float,
+                           max_rounds: int = 256
+                           ) -> Tuple[torch.Tensor, int]:
+    """Plain whole loop: a host loop over :func:`prop_round_plain`, one
+    scalar read a round."""
+    qall, state, inv, h2 = _propagation_inputs(grid, normals, r2, seed_idx,
+                                               sv_resolution)
     rounds = 0
     for adopt in (False, True):
         it, changed = 0, 1
         while changed > 0 and it < max_rounds:
-            state, chg = prop_round(grid, qall, q_mask, state, inv, h2, adopt)
+            state, chg = prop_round_plain(grid, qall, q_mask, state, inv, h2,
+                                          adopt)
             changed = int(chg)
             it += 1
         if not adopt:
             rounds = it
-    lab = state[:, 6]
-    lab = torch.where(torch.isfinite(lab) & (lab >= 0), lab, -1.0).long()
-    return torch.where(q_mask, lab, -1), rounds
+    return _labels_of(state, q_mask), rounds
+
+
+def _propagate_kernel(grid: CellGrid, normals: torch.Tensor,
+                      r2: torch.Tensor, q_mask: torch.Tensor,
+                      seed_idx: torch.Tensor, sv_resolution: float,
+                      max_rounds: int) -> Tuple[torch.Tensor, int]:
+    n = grid.n
+    dev = grid.points.device
+    if max_rounds < 0:
+        raise ValueError(f"max_rounds must be >= 0, got {max_rounds}")
+    _cuda.check(normals, "normals", torch.float32, (n, 3), dev)
+    # r2 may be a column of K3's rows: the kernel takes its stride
+    _cuda.check(r2, "r2", torch.float32, (n,), dev, contiguous=False)
+    _cuda.check(q_mask, "q_mask", torch.bool, (n,), dev)
+    _cuda.check(seed_idx, "seed_idx", torch.int64, (seed_idx.numel(),), dev)
+    # scratch of this call (the prefetch thread may be in here too): the
+    # query rows and the two state buffers, and the loop's counters
+    rows = torch.empty((3, n, 8), dtype=torch.float32, device=dev)
+    ctrl = torch.empty(_cuda.lib().pwicp_propagate_ctrl(max_rounds),
+                       dtype=torch.int32, device=dev)
+    labels = torch.empty(n, dtype=torch.int64, device=dev)
+    _cuda.launch("pwicp_propagate", ("prop_round", "propagate"),
+                 normals.data_ptr(), r2.data_ptr(), r2.stride(0),
+                 q_mask.data_ptr(), seed_idx.data_ptr(), seed_idx.numel(), n,
+                 float(0.4 / sv_resolution), float(grid.h) * float(grid.h),
+                 max_rounds, *grid.kernel_args(), rows[0].data_ptr(),
+                 rows[1].data_ptr(), rows[2].data_ptr(), labels.data_ptr(),
+                 ctrl.data_ptr(), device=dev)
+    return labels, int(ctrl[0])                   # the one read of the call
+
+
+def propagate_rounds(grid: CellGrid, normals: torch.Tensor, r2: torch.Tensor,
+                     q_mask: torch.Tensor, seed_idx: torch.Tensor,
+                     sv_resolution: float, max_rounds: int = 256
+                     ) -> Tuple[torch.Tensor, int]:
+    """Seeded metric label propagation to convergence (<= ``max_rounds``),
+    then the orphan sweep (<= ``max_rounds``).  Returns (labels [n] int64
+    in SORTED order = seed slot ids, -1 unlabelled; propagation rounds).
+    On CUDA tensors the whole loop is one launch of K4 and one
+    device-to-host read."""
+    if grid.points.is_cuda:
+        return _propagate_kernel(grid, normals, r2, q_mask, seed_idx,
+                                 sv_resolution, max_rounds)
+    return propagate_rounds_plain(grid, normals, r2, q_mask, seed_idx,
+                                  sv_resolution, max_rounds)

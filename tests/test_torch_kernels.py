@@ -65,16 +65,18 @@ def test_knn_sorted(grid, cuda):
     assert bool((kd[kr] == torch.sqrt(pd2[kr])).all())
 
 
-def test_knn_sorted_crowded_cell_and_sentinel(cuda):
-    """One cell crowded beyond the window a block stages in shared memory
-    (the kernel walks it from global memory) on a grid that also holds
-    points moved to the sentinel, whose queries are masked: both branches
-    equal the plain version bit for bit."""
+@pytest.fixture()
+def crowded(cuda):
+    """A grid with one cell crowded beyond the window a block stages in
+    shared memory (the self-join kernels walk it from global memory) that
+    also holds points moved to the sentinel, whose queries are masked.
+    Returns (grid, query mask, sentinel mask, h)."""
     rng = np.random.default_rng(6)
     pts = terrain_cloud(rng, n_side=150).astype(np.float64)
     pts = (pts - pts.mean(axis=0)).astype(np.float32)
     h = _seg_h(45, RES)
-    cap = _cuda.lib().pwicp_knn_cap()
+    lib = _cuda.lib()
+    cap = max(lib.pwicp_knn_cap(), lib.pwicp_seg_cap(), lib.pwicp_prop_cap())
     crowd = pts[len(pts) // 2] + rng.uniform(
         -0.2 * h, 0.2 * h, (cap + 100, 3)).astype(np.float32)
     # the crowd spans 0.4 h, so the window of each of its cells holds all
@@ -83,7 +85,22 @@ def test_knn_sorted_crowded_cell_and_sentinel(cuda):
     gone = torch.from_numpy(rng.uniform(size=g.n) < 0.01).to(cuda)
     g = g.with_points(torch.where(gone[:, None],
                                   torch.tensor(1e30, device=cuda), g.points))
-    qm = ~gone
+    return g, ~gone, gone, h
+
+
+def _propagation_inputs(g, qm, sv):
+    """(normals, t2, seed indices) of the live points of ``g`` from K3."""
+    t2, _, nrm = seg_cuda.seg_stats(g, qm, 45)
+    live = np.flatnonzero(qm.cpu().numpy())
+    seeds = live[propagate_seeds(g.points.cpu().numpy()[live], sv)]
+    return nrm, t2, torch.from_numpy(seeds.astype(np.int64)).to(
+        g.points.device)
+
+
+def test_knn_sorted_crowded_cell_and_sentinel(crowded):
+    """Both branches (staged window, walk from global memory) equal the
+    plain version bit for bit."""
+    g, qm, gone, h = crowded
     ki, kd, kr = nn_cuda.knn_sorted(g, qm, 15)
     pi, pd2 = nn_cuda.knn_sorted_plain(_fresh(g), qm, 15)
     pd = torch.sqrt(pd2)
@@ -96,19 +113,39 @@ def test_knn_sorted_crowded_cell_and_sentinel(cuda):
     assert not bool((gone[got.clamp(min=0)] & (got >= 0)).any())
 
 
-def test_seg_stats(grid, cuda):
-    qm = torch.ones(grid.n, dtype=torch.bool, device=cuda)
-    qm[::11] = False
-    ks = seg_cuda.seg_stats_rows(grid, qm, 45)
-    ps = seg_cuda.seg_stats_plain(_fresh(grid), qm, 45)
+def _assert_stats_equal(ks, ps, h):
     assert bool((ks[:, :2] == ps[:, :2]).all())      # counts and t2 equal
     # moment sums in another order: 1e-5 of count * h (first moments)
     # and count * h^2 (second moments)
-    h = grid.h
     scale = torch.cat([ps[:, :1].expand(-1, 3) * h,
                        ps[:, :1].expand(-1, 6) * h * h], dim=1)
     assert bool(((ks[:, 2:11] - ps[:, 2:11]).abs()
                  <= 1e-5 * scale + 1e-12).all())
+    assert bool((ks[:, 11:] == 0).all())
+
+
+def test_seg_stats(grid, cuda):
+    qm = torch.ones(grid.n, dtype=torch.bool, device=cuda)
+    qm[::11] = False
+    n0 = _cuda.LAUNCHES["seg_stats"]
+    ks = seg_cuda.seg_stats_rows(grid, qm, 45)
+    assert _cuda.LAUNCHES["seg_stats"] == n0 + 1
+    ps = seg_cuda.seg_stats_plain(_fresh(grid), qm, 45)
+    _assert_stats_equal(ks, ps, grid.h)
+    again = seg_cuda.seg_stats_rows(grid, qm, 45)
+    assert bool((ks == again).all())                 # the same bits each run
+
+
+def test_seg_stats_crowded_cell_and_sentinel(crowded):
+    """K3's staged and walked branches against the plain version; masked
+    queries give the masked row."""
+    g, qm, gone, h = crowded
+    ks = seg_cuda.seg_stats_rows(g, qm, 45)
+    ps = seg_cuda.seg_stats_plain(_fresh(g), qm, 45)
+    _assert_stats_equal(ks, ps, h)
+    assert bool((ks[gone, 0] == 0).all())
+    assert bool((ks[gone, 1] == np.float32(h * h)).all())
+    assert bool((ks[gone, 2:] == 0).all())
 
 
 @pytest.mark.parametrize("adopt", [False, True])
@@ -128,6 +165,51 @@ def test_prop_round(grid, cuda, adopt):
     ps, pc = seg_cuda.prop_round_plain(_fresh(grid), qall, qm, state, *args)
     assert bool((ks == ps).all())
     assert int(kc) == int(pc)
+
+
+@pytest.mark.parametrize("adopt", [False, True])
+def test_prop_round_crowded_cell_and_sentinel(crowded, adopt):
+    """K4's staged and walked branches against the plain version."""
+    g, qm, gone, h = crowded
+    sv = 10 * RES
+    nrm, t2, seed_idx = _propagation_inputs(g, qm, sv)
+    state = seg_cuda.init_state(g.points, nrm, seed_idx)
+    qall = torch.cat([g.points, nrm, t2[:, None],
+                      torch.zeros_like(t2)[:, None]], dim=1).contiguous()
+    args = (float(0.4 / sv), h * h)
+    state, _ = seg_cuda.prop_round(g, qall, qm, state, *args, False)
+    ks, kc = seg_cuda.prop_round(g, qall, qm, state, *args, adopt)
+    ps, pc = seg_cuda.prop_round_plain(_fresh(g), qall, qm, state, *args,
+                                       adopt)
+    assert bool((ks == ps).all())
+    assert int(kc) == int(pc)
+
+
+@pytest.mark.parametrize("max_rounds", [256, 2, 0])
+@pytest.mark.parametrize("which", ["terrain", "crowded"])
+def test_propagate_rounds_whole_loop(request, which, max_rounds):
+    """The whole loop in one launch against the host loop over the plain
+    round: labels and round count equal, also where the cap ends the loop
+    before convergence."""
+    if which == "terrain":
+        g = request.getfixturevalue("grid")
+        qm = torch.ones(g.n, dtype=torch.bool, device=g.points.device)
+    else:
+        g, qm, _, _ = request.getfixturevalue("crowded")
+    sv = 10 * RES
+    nrm, t2, seed_idx = _propagation_inputs(g, qm, sv)
+    before = dict(_cuda.LAUNCHES)
+    kl, kr = seg_cuda.propagate_rounds(g, nrm, t2, qm, seed_idx, sv,
+                                       max_rounds=max_rounds)
+    assert _cuda.LAUNCHES["propagate"] == before.get("propagate", 0) + 1
+    assert _cuda.LAUNCHES["prop_round"] == before.get("prop_round", 0) + 1
+    pl, pr = seg_cuda.propagate_rounds_plain(_fresh(g), nrm, t2, qm,
+                                             seed_idx, sv,
+                                             max_rounds=max_rounds)
+    assert kr == pr
+    assert bool((kl == pl).all())
+    if max_rounds == 256:
+        assert 2 < kr < 256 and float((kl[qm] >= 0).float().mean()) > 0.99
 
 
 @pytest.mark.parametrize("masked", [False, True])
@@ -217,3 +299,16 @@ def test_wrapper_rejects_bad_operands(grid, cuda):
         nn_cuda.knn_sorted(grid, qm[:-1], 15)
     with pytest.raises(ValueError):
         nn_cuda.nn1_brute(grid.points, grid.points, t_mask=qm[:-1])
+    with pytest.raises(ValueError):
+        seg_cuda.seg_stats_rows(grid, qm[:-1], 45)
+    t2, _, nrm = seg_cuda.seg_stats(grid, qm, 45)
+    seeds = torch.arange(0, grid.n, 50, device=cuda)
+    with pytest.raises(ValueError):
+        seg_cuda.propagate_rounds(grid, nrm.double(), t2, qm, seeds, 0.1)
+    with pytest.raises(ValueError):
+        seg_cuda.propagate_rounds(grid, nrm, t2[:-1], qm, seeds, 0.1)
+    with pytest.raises(ValueError):
+        seg_cuda.propagate_rounds(grid, nrm, t2, qm, seeds.int(), 0.1)
+    with pytest.raises(ValueError):
+        seg_cuda.propagate_rounds(grid, nrm, t2, qm, seeds, 0.1,
+                                  max_rounds=-1)

@@ -142,21 +142,40 @@ class TestPropagation:
         assert (lab == j_lab).mean() >= 0.99
         assert abs(int(chg) - int(float(j_chg))) <= 0.01 * len(lab) + 1
 
-    def test_propagate_rounds_matches_pallas(self, inputs):
+    @staticmethod
+    def _both(inputs, **kw):
+        """(port labels, port rounds, JAX labels, JAX rounds) of one
+        whole propagation."""
         grid, sp, cg, t2, nrm, seeds, all_q = inputs
         lab, rounds = seg_cuda.propagate_rounds(
             cg, nrm, t2, all_q, torch.from_numpy(seeds.astype(np.int64)),
-            SV)
+            SV, **kw)
         pts, qm, starts, origin, dims = _jax_common(grid, sp)
         j_lab, j_rounds = propagate_rounds(
             pts, jnp.asarray(_padded(sp, nrm.numpy())),
             jnp.asarray(_padded(sp, t2.numpy())), qm,
             jnp.asarray(sp.pos_map[seeds]), starts, origin, dims, H, SV,
-            host_ranges=(jnp.asarray(sp.ranges), jnp.asarray(sp.covered)))
-        j_lab = np.asarray(j_lab)[sp.pos_map]
-        agree = (lab.numpy() == j_lab).mean()
+            host_ranges=(jnp.asarray(sp.ranges), jnp.asarray(sp.covered)),
+            **kw)
+        return (lab.numpy(), rounds, np.asarray(j_lab)[sp.pos_map],
+                int(j_rounds))
+
+    def test_propagate_rounds_matches_pallas(self, inputs):
+        lab, _, j_lab, _ = self._both(inputs)
+        agree = (lab == j_lab).mean()
         assert agree >= 0.99, agree
-        assert (lab.numpy() >= 0).mean() > 0.99
+        assert (lab >= 0).mean() > 0.99
+
+    def test_propagate_rounds_capped_matches_pallas(self, inputs):
+        """``max_rounds`` caps the propagation rounds and, apart from
+        them, the rounds of the orphan sweep, on both sides."""
+        _, free_rounds, _, j_free = self._both(inputs)
+        assert free_rounds == j_free and free_rounds > 2
+        lab, rounds, j_lab, j_rounds = self._both(inputs, max_rounds=2)
+        assert rounds == j_rounds == 2
+        # ties moved by XLA's FMA contraction, as in the uncapped case
+        agree = (lab == j_lab).mean()
+        assert agree >= 0.99, agree
 
 
 def test_preprocess_segment_device_matches_jax(rng):
