@@ -5,10 +5,11 @@
 
 Builds the port's CUDA kernels from ``piecewise_icp_torch/csrc`` (nvcc),
 holds each kernel against its plain PyTorch version at the main path's
-shapes (142,884-point synthetic terrain epochs; the brute 1-NN also at the
-shape of the stage-1 rescue; the three self-join kernels also on a grid
-with sentinel points and one cell crowded beyond the window a block stages
-in shared memory; the label propagation as one round and as the whole loop
+shapes (142,884-point synthetic terrain epochs; the grid 1-NN at the shape
+of the stage-1 percentile and at that of adaptive planning; the brute 1-NN
+also at the shape of the stage-1 rescue; the three self-join kernels also
+on a grid with sentinel points and one cell crowded beyond the window a
+block stages in shared memory, and the grid 1-NN on it too; the label propagation as one round and as the whole loop
 in one launch, also with the round cap reached before convergence), works
 out each kernel's bound on the card from these inputs, checks
 resolution estimation against a float64 KD-tree, then drives the port's
@@ -36,10 +37,16 @@ campaign, which runs all five kernels; times, bounds and errors of this
 run; the whole-loop launch of the label propagation has a row of its own).
 
 ``python3 chip_smoke.py --sweep VARIANT [VARIANT ...]`` runs none of the
-above: it times K1-K4 and K4's whole loop at the same shapes, for the
-sources as they are (``base``) or with compile-time constants replaced (for
-example ``kPropCap=256,kSegWarps=8``), and prints one JSON line a variant.
-This is how the staged caps and the warps a block were chosen.
+above: it times K1-K4 and K4's whole loop at the same shapes (K1 at both of
+its shapes, the stage-1 percentile's and adaptive planning's, as the
+kernel's wrapper, as the public call and under the stage-1 percentile that
+calls it, each with the launches a call puts on the device), for the
+sources as they are
+(``base``) or with compile-time constants replaced (for example
+``kPropCap=256,kSegWarps=8``, or ``kRangeLanes=16``; ``kRangeWalk=0`` is
+the floor of K1's launch: bounds read, outputs written, no candidate met),
+and prints one JSON line a variant.  This is how the staged caps, the warps
+a block and K1's lanes a query were chosen.
 
 Needs a CUDA device: with none visible it exits non-zero and prints no
 result.
@@ -71,6 +78,7 @@ RES = 0.005
 KNN_NORMALS = 45
 SOR_K = 14
 SV = 0.05
+DT_INIT = 0.05
 
 REPLACES = {
     "range_nn1": ("piecewise_icp_torch/csrc/range_nn1.cu",
@@ -377,34 +385,80 @@ def kernel_phases(seed: int) -> dict:
         10 * pairs)
     crowded_check(p1, h, k2, seed)
 
-    # K1: stage-1 percentile 1-NN, moving source vs static target grid
+    # K1 at the two shapes the main path gives it: the stage-1 percentile
+    # (moving source, cell-sorted, against the static target grid of
+    # 4 * res) and adaptive planning (a whole epoch in file order, no mask,
+    # against a target grid of DTinit)
     index1 = build_grid(p1, 4.0 * RES)
-    grid1 = CellGrid.from_index(index1, dev)
     q = torch.from_numpy(p2[_cell_order(p2, index1)]).to(dev)
     qm = torch.ones(q.shape[0], dtype=torch.bool, device=dev)
-    ki1, kd1, kr1, _ = nn_cuda.range_nn1(q, qm, grid1)
-    pi1, pd21 = nn_cuda.range_nn1_plain(q, qm, grid1)
-    pd1 = torch.sqrt(torch.clamp(pd21, min=0.0))
-    pr1 = torch.isfinite(pd1) & (pd1 <= float(np.float32(grid1.h)))
-    require(bool(kr1.any()), "K1: no query resolved")
-    require(bool((kr1 == pr1).all()), "K1: resolved sets differ")
-    require(bool((ki1[kr1] == pi1[kr1]).all()), "K1: nearest ids differ")
-    err = max_abs(kd1[kr1], pd1[kr1])
-    require(err == 0.0, f"K1: distances differ by {err}")
-    pairs1 = window_pairs(grid1, q, qm)
-    results["range_nn1"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: nn_cuda._range_nn1_kernel(q, qm, grid1)),
-        plain_ms=time_ms(lambda: nn_cuda.range_nn1_plain(q, qm, grid1)),
-        # a distance and its comparison for each candidate
-        **bound(12 * n + 4 * (grid1.n_cells + 1) + 13 * q.shape[0]
-                + 8 * q.shape[0], 9 * pairs1))
-    log(f"K1 range_nn1 h={grid1.h}: {int(kr1.sum())}/{q.shape[0]} resolved; "
-        f"ids and distances equal (tolerance 0); {pairs1} candidates in "
-        f"the windows; kernel "
-        f"{results['range_nn1']['ms']:.3f} ms, plain (chunked brute) "
-        f"{results['range_nn1']['plain_ms']:.3f} ms")
+    results["range_nn1"] = range_nn1_check(
+        "stage 1", CellGrid.from_index(index1, dev), q, qm, reps=5)
+    plan = range_nn1_check(
+        "planning", CellGrid.from_index(build_grid(p1, DT_INIT), dev),
+        torch.from_numpy(p2).to(dev), None, reps=1)
+    results["range_nn1"].update({f"{k}_plan": v for k, v in plan.items()
+                                 if k != "library_ms"})
     return results
+
+
+def range_nn1_equal(shape: str, grid, q, qm):
+    """K1 against its plain version on these operands, tolerance 0: the
+    resolved flags and the count of unresolved queries everywhere, ids and
+    distances of the resolved queries (an unresolved query's window does
+    not hold its true nearest); the count is reset by every launch.
+    Returns (largest distance difference, resolved flags, count)."""
+    import torch
+
+    from piecewise_icp_torch.ops import nn_cuda
+
+    ki, kd, kr, kn = nn_cuda._range_nn1_kernel(q, qm, grid)
+    pi, pd, pr, pn = nn_cuda.range_nn1_plain(q, qm, grid)
+    require(bool(kr.any()), f"K1 ({shape}): no query resolved")
+    require(bool((kr == pr).all()), f"K1 ({shape}): resolved sets differ")
+    require(bool((ki[kr] == pi[kr]).all()),
+            f"K1 ({shape}): nearest ids differ")
+    # a masked query is resolved at (0, inf) on both sides
+    require(bool((kd[kr] == pd[kr]).all()),
+            f"K1 ({shape}): distances differ")
+    met = kr & torch.isfinite(pd)
+    err = max_abs(kd[met], pd[met])
+    require(err == 0.0, f"K1 ({shape}): distances differ by {err}")
+    require(int(kn) == int(pn) == int((~kr).sum()),
+            f"K1 ({shape}): {int(kn)} unresolved counted, plain {int(pn)}, "
+            f"flags {int((~kr).sum())}")
+    again = nn_cuda.range_nn1_counted(q, qm, grid)
+    require(int(again[4]) == int(kn) and bool((again[1] == kd).all()),
+            f"K1 ({shape}): a second launch gave another count or distance")
+    return err, kr, kn
+
+
+def range_nn1_check(shape: str, grid, q, qm, reps: int) -> dict:
+    """K1 held against its plain version at one of the main path's shapes,
+    then the times of both and the bound."""
+    from piecewise_icp_torch.ops import nn_cuda
+
+    nq = q.shape[0]
+    err, kr, kn = range_nn1_equal(shape, grid, q, qm)
+    pairs = window_pairs(grid, q, qm)
+    res = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: nn_cuda._range_nn1_kernel(q, qm, grid)),
+        plain_ms=time_ms(lambda: nn_cuda.range_nn1_plain(q, qm, grid),
+                         reps=reps),
+        # a distance and its comparison for each candidate; the grid, the
+        # queries (and their mask) in, index, distance, flag and count out
+        **bound(12 * grid.n + 4 * (grid.n_cells + 1)
+                + (12 if qm is None else 13) * nq + 13 * nq + 4, 9 * pairs))
+    log(f"K1 range_nn1, {shape}: h={grid.h}, {nq} queries "
+        f"({'no mask' if qm is None else 'all live'}), {int(kr.sum())} "
+        f"resolved, {int(kn)} counted unresolved; flags, count, ids and "
+        f"distances equal (tolerance 0), the count the same in a second "
+        f"launch; {pairs} candidates in the windows ({pairs / nq:.1f} a "
+        f"query); kernel {res['ms']:.3f} ms, plain (chunked brute) "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']})")
+    return res
 
 
 def stats_check(ks, ps, h: float, q_mask, what: str):
@@ -576,6 +630,15 @@ def crowded_check(p1: np.ndarray, h: float, k: int, seed: int) -> None:
         f"sentinel (masked queries), widest window {widest} > {cap} staged: "
         f"{int(kr.sum())}/{n} resolved, ids and distances equal "
         f"(tolerance 0) on both branches")
+
+    # K1 has one path for every window size: the grid's points, moved a
+    # little, ask as its queries (those at the sentinel masked)
+    q = torch.where(gone[:, None], grid.points, grid.points + torch.from_numpy(
+        rng.normal(scale=0.3 * h, size=(n, 3)).astype(np.float32)).to(dev))
+    _, kr1, kn1 = range_nn1_equal("crowded", grid, q, qm)
+    log(f"K1 range_nn1, crowded: {int(qm.sum())} live queries, "
+        f"{int(kn1)} unresolved; flags, count, ids and distances equal "
+        f"(tolerance 0), masked queries resolved at (0, inf)")
 
     ks = seg_cuda._seg_stats_kernel(grid, qm, KNN_NORMALS)
     ps = seg_cuda.seg_stats_plain(fresh(), qm, KNN_NORMALS)
@@ -1138,9 +1201,10 @@ def profile_run(run, label: str) -> None:
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     all_rows = sum(e.self_device_time_total for e in rows) / 1e3
     log(f"profile {label}: device busy {busy:.1f} ms of {wall * 1e3:.1f} ms "
-        f"wall ({100 * busy / max(wall * 1e3, 1e-9):.1f}%; {len(kernels)} "
-        f"kernel names; operator and kernel rows summed together: "
-        f"{all_rows:.1f} ms)")
+        f"wall ({100 * busy / max(wall * 1e3, 1e-9):.1f}%; "
+        f"{sum(e.count for e in kernels)} launches and copies under "
+        f"{len(kernels)} kernel names; operator and kernel rows summed "
+        f"together: {all_rows:.1f} ms)")
     by_time = sorted(kernels, key=lambda e: -e.self_device_time_total)
     # the ten longest, and every kernel of the port (its time a launch on
     # this path, without the wrapper's host work)
@@ -1183,16 +1247,20 @@ def kernel_times(variant: str, seed: int) -> dict:
     ``single``, the median of 5 calls between CUDA events (the wrapper's
     host work included); ``back_to_back``, the mean of 30 calls enqueued
     without a wait (where a kernel is shorter than its wrapper this measures
-    the wrapper); ``device``, the kernel's own time a call under the
-    profiler.  ``sig`` hashes K3's t2 and counts and K4's labels after
-    three rounds: equal across variants that compute the same function."""
+    the wrapper); ``device``, the time a call of the port's own kernels
+    under the profiler, and ``launches``, the kernels and copies a call
+    puts on the device (PyTorch's included).  ``sig`` hashes K3's t2 and counts, K4's labels after three
+    rounds and K1's ids and distances at both shapes: equal across
+    variants that compute the same function (``kRangeWalk=0``, the floor
+    of K1's launch, meets no candidate and does not)."""
     import hashlib
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from piecewise_icp_torch.models.piecewise_icp import _cell_order
+    from piecewise_icp_torch.models.piecewise_icp import _cell_order, \
+        _stage1_percentile
     from piecewise_icp_torch.models.segmentation_device import _seg_h
     from piecewise_icp_torch.ops import _cuda, nn_cuda, seg_cuda
     from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
@@ -1209,14 +1277,16 @@ def kernel_times(variant: str, seed: int) -> dict:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def device_ms(fn, reps: int = 20) -> float:
+    def on_device(fn, reps: int = 20) -> dict:
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type != DeviceType.CPU
-                   and e.key.startswith("pwicp::")) / 1e3 / reps
+        rows = [e for e in prof.key_averages()
+                if e.device_type != DeviceType.CPU]
+        return {"device": sum(e.self_device_time_total for e in rows
+                              if e.key.startswith("pwicp::")) / 1e3 / reps,
+                "launches": sum(e.count for e in rows) / reps}
 
     with tempfile.TemporaryDirectory() as tmp:
         if variant != "base":
@@ -1232,11 +1302,24 @@ def kernel_times(variant: str, seed: int) -> dict:
         t2, nk = ks[:, 1], seg_cuda.normals_from_stats(ks)
         seed_idx, qall, inv, h2, state = propagation_inputs(grid, all_q, nk,
                                                             t2, 3)
+        # K1 at its two shapes (stage 1: cell-sorted queries, h = 4 res;
+        # planning: file order, h = DTinit), the kernel's wrapper and the
+        # public call with whatever elementwise passes follow it
         index1 = build_grid(p1, 4.0 * RES)
         grid1 = CellGrid.from_index(index1, dev)
         q1 = torch.from_numpy(p2[_cell_order(p2, index1)]).to(dev)
+        grid_p = CellGrid.from_index(build_grid(p1, DT_INIT), dev)
+        q_p = torch.from_numpy(p2).to(dev)
         fns = {
             "range_nn1": lambda: nn_cuda._range_nn1_kernel(q1, all_q, grid1),
+            "range_nn1_plan": lambda: nn_cuda._range_nn1_kernel(q_p, all_q,
+                                                                grid_p),
+            "range_nn1_call": lambda: nn_cuda.range_nn1(q1, all_q, grid1),
+            "range_nn1_call_plan": lambda: nn_cuda.range_nn1(q_p, all_q,
+                                                             grid_p),
+            # the caller of the first shape, no query left unresolved
+            "stage1_percentile": lambda: _stage1_percentile(q1, all_q, grid1,
+                                                            0.75),
             "knn_sorted": lambda: nn_cuda._knn_sorted_kernel(grid, all_q,
                                                              SOR_K + 1),
             "seg_stats": lambda: seg_cuda._seg_stats_kernel(grid, all_q,
@@ -1251,12 +1334,15 @@ def kernel_times(variant: str, seed: int) -> dict:
         if hasattr(seg_cuda, "_propagate_kernel"):
             fns["propagate"] = lambda: seg_cuda._propagate_kernel(
                 grid, nk, t2, all_q, seed_idx, SV, 256)
+        k1 = b"".join(a.cpu().numpy().tobytes()
+                      for g, qq in ((grid1, q1), (grid_p, q_p))
+                      for a in nn_cuda.range_nn1(qq, all_q, g)[:2])
         sig = hashlib.sha1(ks[:, :2].cpu().numpy().tobytes()
                            + state[:, 6].cpu().numpy().tobytes()
-                           ).hexdigest()[:12]
+                           + k1).hexdigest()[:12]
         ms = {name: {"single": time_ms(fn),
                      "back_to_back": back_to_back_ms(fn),
-                     "device": device_ms(fn)} for name, fn in fns.items()}
+                     **on_device(fn)} for name, fn in fns.items()}
     return {"variant": variant, "card": nvidia_smi_line(), "sig": sig,
             "ms": ms}
 
@@ -1338,6 +1424,11 @@ def main(argv=None) -> int:
             + (f"; {50 * k['bound_ms'] / k['ms']:.1f}% were the operations "
                f"counted against the data sheet's 67e12 a second"
                if k["bound_by"] == "operations" else ""))
+        if "ms_plan" in k:
+            log(f"{k['name']}, planning shape: {k['ms_plan']:.3f} ms against "
+                f"a bound of {k['bound_ms_plan']:.4f} ms "
+                f"({k['bound_by_plan']}): "
+                f"{100 * k['bound_ms_plan'] / k['ms_plan']:.1f}% of it")
     print(json.dumps(record), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,12 +5,13 @@
 // by linearised cell id (x-major, z fastest) with cell size h.  Any target
 // within h of a query lies in the query's 27-cell window, and with z fastest
 // that window is at most nine contiguous runs of the sorted array, read off
-// the dense CSR array `starts`.  One warp serves one query.  K1 (moved
-// queries) walks each query's own runs from global memory.  The self-join
-// kernels (K2, K3, K4) ask from the grid's own points, so the queries of one
-// cell are contiguous and share one window: a block takes a cell, stages the
-// window once in shared memory as a structure of arrays and serves every
-// query of the cell from it (the helpers from `Runs` down).  There the window
+// the dense CSR array `starts`.  K1 (moved queries) gives each query a
+// sub-warp that strides over its own window, flattened, from global memory
+// (range_nn1.cu).  The self-join kernels (K2, K3, K4) ask from the grid's
+// own points, a warp a query; the queries of one cell are contiguous and
+// share one window: a block takes a cell, stages the window once in shared
+// memory as a structure of arrays and serves every query of the cell from
+// it (the helpers from `Runs` down).  There the window
 // of a query is that of the cell it was binned into (its CSR run), not of its
 // current coordinates: a point moved to the 1e30 sentinel in place keeps its
 // cell, is a masked query, and is answered before any window is read.
@@ -71,22 +72,6 @@ __device__ __forceinline__ Window window_of(const Grid& g, float qx, float qy,
   w.z0 = max(cz - 1, 0);
   w.z1 = min(cz + 1, g.dz - 1);
   return w;
-}
-
-// Calls f(j) for every target j of the window, lane-strided; each lane sees
-// its candidates in increasing j.
-template <class F>
-__device__ __forceinline__ void for_each_candidate(const Grid& g,
-                                                   const Window& w, int lane,
-                                                   F f) {
-  for (int x = w.x0; x <= w.x1; ++x) {
-    for (int y = w.y0; y <= w.y1; ++y) {
-      int base = (x * g.dy + y) * g.dz;
-      int s = g.starts[min(base + w.z0, g.n_cells)];
-      int e = g.starts[min(base + w.z1 + 1, g.n_cells)];
-      for (int j = s + lane; j < e; j += kWarp) f(j);
-    }
-  }
 }
 
 // ((dx*dx + dy*dy) + dz*dz) with d = q - t, no contraction.
@@ -288,10 +273,6 @@ inline Grid make_grid(const float* pts, const int* starts, int n_cells,
   g.dy = dy;
   g.dz = dz;
   return g;
-}
-
-inline int n_blocks(int n_queries) {
-  return (n_queries + kWarpsPerBlock - 1) / kWarpsPerBlock;
 }
 
 }  // namespace pwicp

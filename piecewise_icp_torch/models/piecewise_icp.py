@@ -30,7 +30,7 @@ from ..utils.logging import gphase, log
 
 from ..device import fetch, resolve_device
 from ..ops.grid_nn import CellGrid, build_grid
-from ..ops.nn_cuda import nn1_brute, range_nn1
+from ..ops.nn_cuda import nn1_brute, range_nn1_counted
 from ..ops.preprocess import percentile_c2c
 from ..ops.transform import (apply_transform, bounding_box_corner_change,
                              masked_aabb, matrix_to_angles, params_to_matrix)
@@ -110,22 +110,25 @@ def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile):
     """The stage-1 percentile of stable source->target NN distances.
 
     K1 resolves every stable query whose nearest target lies within the
-    grid's h; the unresolved ones (at most ``_PCT_RESCUE``) are re-measured
-    by the brute 1-NN (K5).  Returns device scalars (d75, exact,
-    n_unresolved)."""
-    _, d, resolved, strict = range_nn1(cloud2, pt_stable, grid)
-    bad = pt_stable & ~resolved
-    bad_idx = torch.nonzero(bad).squeeze(1)
-    n_bad = bad_idx.shape[0]
+    grid's h and counts the rest; where that count (the one host read
+    here) is 0 nothing else runs.  Otherwise the unresolved queries (the
+    first ``_PCT_RESCUE`` by index at most) are re-measured by the brute
+    1-NN (K5).  Returns (d75, exact) as device scalars and n_unresolved."""
+    _, d, resolved, strict, n_unresolved = range_nn1_counted(
+        cloud2, pt_stable, grid)
+    n_bad = int(n_unresolved)
     u = min(_PCT_RESCUE, n_bad)
-    rescued = torch.zeros_like(bad)
-    if u:
-        sel = bad_idx[:u]
-        with gphase("core.stage1_rescue", queries=u):
-            _, d[sel] = nn1_brute(cloud2[sel], grid.points)
-        rescued[sel] = True
-    ok = resolved | ~pt_stable | rescued
-    d_ok = torch.where(ok, d, torch.inf)
+    if n_bad:
+        # masked queries count as resolved: these are stable ones
+        ok = resolved.clone()
+        if u:
+            sel = torch.nonzero(~resolved).squeeze(1)[:u]
+            with gphase("core.stage1_rescue", queries=u):
+                _, d[sel] = nn1_brute(cloud2[sel], grid.points)
+            ok[sel] = True
+        d_ok = torch.where(ok, d, torch.inf)
+    else:
+        d_ok = d
     stable_n = pt_stable.sum()
     idx = torch.clamp((stable_n.to(torch.float32)
                        * torch.tensor(percentile, dtype=torch.float32,

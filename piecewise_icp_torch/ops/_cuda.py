@@ -55,7 +55,7 @@ _F = ctypes.c_float
 _GRID_ARGS = [_P, _P, _I, _F, _F, _F, _F, _I, _I, _I]
 
 _SIGNATURES = {
-    "pwicp_range_nn1": [_P, _P, _I] + _GRID_ARGS + [_P, _P, _P],
+    "pwicp_range_nn1": [_P, _P, _I] + _GRID_ARGS + [_P, _P, _P, _P, _P],
     "pwicp_knn_sorted": [_P, _I] + _GRID_ARGS + [_P, _P, _P, _P],
     "pwicp_seg_stats": [_P, _I, _F] + _GRID_ARGS + [_P, _P, _P],
     "pwicp_prop_round": [_P, _P, _P, _F, _F, _I] + _GRID_ARGS + [_P, _P, _P],

@@ -144,49 +144,78 @@ def neighbour_d2(grid: CellGrid, nbr: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def range_nn1_plain(queries: torch.Tensor, q_mask: torch.Tensor,
-                    grid: CellGrid) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain K1: chunked brute 1-NN over all grid points.
-    Returns (idx into sorted targets or -1, d2); masked queries (inf, -1)."""
+def range_nn1_plain(queries: torch.Tensor, q_mask: torch.Tensor | None,
+                    grid: CellGrid
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                               torch.Tensor]:
+    """Plain K1: chunked brute 1-NN over all grid points, then the
+    kernel's epilogue.  Returns what the kernel writes: (idx into the
+    sorted targets clamped >= 0, dist, resolved, the number of unresolved
+    live queries as an int32 scalar tensor); masked queries (0, inf,
+    resolved)."""
     _cuda.note_plain("range_nn1", queries)
     idx, d2 = _nn1_sq(queries, grid.points)
-    d2 = torch.where(q_mask, d2, torch.inf)
-    return torch.where(q_mask, idx, -1), d2
+    d = torch.sqrt(torch.clamp(d2, min=0.0))
+    resolved = torch.isfinite(d) & (d <= _f32(grid.h))
+    if q_mask is not None:
+        resolved = ~q_mask | resolved
+        d = torch.where(q_mask, d, torch.inf)
+        idx = torch.where(q_mask, idx, -1)
+    n_unresolved = (~resolved).sum().to(torch.int32)
+    return torch.clamp(idx, min=0), d, resolved, n_unresolved
 
 
-def _range_nn1_kernel(queries: torch.Tensor, q_mask: torch.Tensor,
-                      grid: CellGrid) -> Tuple[torch.Tensor, torch.Tensor]:
+def _range_nn1_kernel(queries: torch.Tensor, q_mask: torch.Tensor | None,
+                      grid: CellGrid
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
     n = queries.shape[0]
     dev = grid.points.device
     _cuda.check(queries, "queries", torch.float32, (n, 3), dev)
-    _cuda.check(q_mask, "q_mask", torch.bool, (n,), dev)
-    idx = torch.empty(n, dtype=torch.int32, device=dev)
-    d2 = torch.empty(n, dtype=torch.float32, device=dev)
+    if q_mask is not None:
+        _cuda.check(q_mask, "q_mask", torch.bool, (n,), dev)
+    idx = torch.empty(n, dtype=torch.int64, device=dev)
+    d = torch.empty(n, dtype=torch.float32, device=dev)
+    resolved = torch.empty(n, dtype=torch.bool, device=dev)
+    # zeroed by the C entry on the launch's stream; one per call
+    n_unresolved = torch.empty((), dtype=torch.int32, device=dev)
     _cuda.launch("pwicp_range_nn1", "range_nn1", queries.data_ptr(),
-                 q_mask.data_ptr(), n, *grid.kernel_args(),
-                 idx.data_ptr(), d2.data_ptr(), device=dev)
-    return idx.long(), d2
+                 None if q_mask is None else q_mask.data_ptr(), n,
+                 *grid.kernel_args(), idx.data_ptr(), d.data_ptr(),
+                 resolved.data_ptr(), n_unresolved.data_ptr(), device=dev)
+    return idx, d, resolved, n_unresolved
 
 
-def range_nn1(queries: torch.Tensor, q_mask: torch.Tensor, grid: CellGrid
-              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, bool]:
+def range_nn1_counted(queries: torch.Tensor, q_mask: torch.Tensor | None,
+                      grid: CellGrid
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 bool, torch.Tensor]:
     """1-NN of ``queries`` among the grid's sorted points (K1).
 
-    Returns (idx into the SORTED targets, dist, resolved [Q], strict).
-    ``resolved`` queries (masked, or nearest within ``h``) carry their
-    exact nearest distance; the per-query window walk covers every query,
-    so ``strict`` (every unresolved query's true distance exceeds ``h``)
-    always holds.
+    Returns (idx into the SORTED targets, dist, resolved [Q], strict,
+    n_unresolved).  ``resolved`` queries (masked, or nearest within ``h``)
+    carry their exact nearest distance; every query meets its whole
+    27-cell window, so ``strict`` (every unresolved query's true distance
+    exceeds ``h``) always holds.  ``n_unresolved`` is an int32 scalar
+    tensor on the queries' device: the number of live queries that are not
+    resolved, so a caller learns from one integer whether any is left to
+    re-measure.  ``q_mask`` None: every query is live.  The kernel writes
+    all of it; no elementwise pass follows.
     """
     if queries.is_cuda:
-        idx, d2 = _range_nn1_kernel(queries, q_mask, grid)
+        out = _range_nn1_kernel(queries, q_mask, grid)
     else:
-        idx, d2 = range_nn1_plain(queries, q_mask, grid)
-    d = torch.sqrt(torch.clamp(d2, min=0.0))
-    found = torch.isfinite(d) & (d <= _f32(grid.h))
-    resolved = ~q_mask | found
-    d = torch.where(q_mask, d, torch.inf)
-    return torch.clamp(idx, min=0), d, resolved, True
+        out = range_nn1_plain(queries, q_mask, grid)
+    idx, d, resolved, n_unresolved = out
+    return idx, d, resolved, True, n_unresolved
+
+
+def range_nn1(queries: torch.Tensor, q_mask: torch.Tensor | None,
+              grid: CellGrid
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, bool]:
+    """:func:`range_nn1_counted` without the count: (idx, dist, resolved,
+    strict)."""
+    return range_nn1_counted(queries, q_mask, grid)[:4]
 
 
 # ---------------------------------------------------------------------------

@@ -256,8 +256,7 @@ def overlap_ratio_grid(target_grid: CellGrid, source: torch.Tensor,
     """
     if abs(target_grid.h - dt_init) > 1e-12 * max(dt_init, 1.0):
         raise ValueError("overlap grid must be built with h == dt_init")
-    n = source.shape[0]
-    mask = torch.ones(n, dtype=torch.bool, device=source.device)
-    _, d, resolved, _ = range_nn1(source, mask, target_grid)
-    hit = resolved & torch.isfinite(d) & (d < dt_init)
-    return _ratio(int(hit.sum()), n)
+    # every query live (no mask); a resolved distance is finite
+    _, d, resolved, _ = range_nn1(source, None, target_grid)
+    hit = resolved & (d < dt_init)
+    return _ratio(int(hit.sum()), source.shape[0])

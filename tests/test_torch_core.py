@@ -9,6 +9,7 @@ import itertools
 
 import numpy as np
 import pytest
+import torch
 
 from piecewise_icp_tpu.models.piecewise_icp import \
     piecewise_icp as j_piecewise_icp
@@ -19,11 +20,14 @@ from piecewise_icp_tpu.ops.preprocess import \
 
 from piecewise_icp_torch.config import config_from_jax
 from piecewise_icp_torch.models.pairwise import TargetState, register_pair
+from piecewise_icp_torch.models import piecewise_icp as core_mod
 from piecewise_icp_torch.models.piecewise_icp import piecewise_icp
 from piecewise_icp_torch.models.segmentation import PatchSet
+from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
+from piecewise_icp_torch.ops.nn_cuda import nn1_brute, range_nn1
 from piecewise_icp_torch.ops.transform import translation_matrix
 
-from util import make_pair, small_test_config
+from util import make_pair, small_test_config, terrain_cloud
 
 PARAMS = np.array([0.002, -0.0015, 0.0025, 0.004, -0.006, 0.005])
 
@@ -104,3 +108,67 @@ def test_register_pair_reuses_carried_states(jax_patch_sets):
             @ translation_matrix(shift))
     np.testing.assert_allclose(out.trans_mat, want, atol=1e-12)
     np.testing.assert_array_equal(out.vcm, core.vcm)
+
+
+def _stage1_percentile_by_flags(cloud2, pt_stable, grid, percentile, budget):
+    """The stage-1 percentile as it was computed before K1 counted its
+    unresolved queries: every step from the flags (``nonzero``, a rescued
+    mask, the three-way ``ok``), whatever their number."""
+    _, d, resolved, strict = range_nn1(cloud2, pt_stable, grid)
+    bad = pt_stable & ~resolved
+    bad_idx = torch.nonzero(bad).squeeze(1)
+    n_bad = bad_idx.shape[0]
+    u = min(budget, n_bad)
+    rescued = torch.zeros_like(bad)
+    if u:
+        sel = bad_idx[:u]
+        _, d[sel] = nn1_brute(cloud2[sel], grid.points)
+        rescued[sel] = True
+    ok = resolved | ~pt_stable | rescued
+    d_ok = torch.where(ok, d, torch.inf)
+    idx = torch.clamp((pt_stable.sum().to(torch.float32)
+                       * torch.tensor(percentile, dtype=torch.float32)
+                       ).to(torch.int64), 0, d_ok.shape[0] - 1)
+    d_grid = torch.sort(d_ok).values[idx]
+    exact = torch.tensor(True) if n_bad <= u \
+        else torch.as_tensor(strict) & (idx < (ok & pt_stable).sum())
+    return d_grid, exact, n_bad
+
+
+@pytest.mark.parametrize("case,percentile", [
+    ("none_unresolved", 0.75), ("some_unresolved", 0.75),
+    ("over_budget", 0.75), ("over_budget", 0.97)])
+def test_stage1_percentile_from_the_count(monkeypatch, case, percentile):
+    """``_stage1_percentile`` reads K1's one count and skips the rescue
+    where it is 0; d75, exact and n_unresolved equal (tolerance 0: the
+    same float32 operations on the CPU) what the flags alone gave before:
+    with no unresolved query, with some, and with more than the rescue
+    budget (the first ones by index are rescued; at the 97th percentile
+    the index lands beyond the resolved block and the result is not
+    exact)."""
+    rng = np.random.default_rng(11)
+    t = terrain_cloud(rng, n_side=50).astype(np.float64)
+    t = (t - t.mean(axis=0)).astype(np.float32)
+    grid = CellGrid.from_index(build_grid(t, 0.12), torch.device("cpu"))
+    cloud2 = t + rng.normal(scale=0.004, size=t.shape).astype(np.float32)
+    n_far = {"none_unresolved": 0, "some_unresolved": 40,
+             "over_budget": 200}[case]
+    far = rng.choice(len(t), n_far, replace=False)
+    cloud2[far, 2] += rng.uniform(0.3, 0.6, n_far).astype(np.float32)
+    stable = rng.uniform(size=len(t)) > 0.2
+    stable[far] = True
+    budget = 64
+    monkeypatch.setattr(core_mod, "_PCT_RESCUE", budget)
+    calls = []
+    monkeypatch.setattr(core_mod, "nn1_brute",
+                        lambda *a, **k: calls.append(1) or nn1_brute(*a, **k))
+    cloud2, stable = torch.from_numpy(cloud2), torch.from_numpy(stable)
+    d75, exact, n_bad = core_mod._stage1_percentile(cloud2, stable, grid,
+                                                    percentile)
+    want = _stage1_percentile_by_flags(cloud2, stable, grid, percentile,
+                                       budget)
+    assert n_bad == want[2] == n_far
+    assert float(d75) == float(want[0])
+    assert bool(exact) == bool(want[1])
+    assert bool(exact) == (case != "over_budget" or percentile == 0.75)
+    assert len(calls) == (1 if n_far else 0)   # no rescue without a need

@@ -120,3 +120,36 @@ def test_sweep_patches_one_constant(tmp_path, monkeypatch):
             == (_cuda.CSRC / "knn_sorted.cu").read_text())
     with pytest.raises(SystemExit):
         chip_smoke.patched_sources("kNoSuchConstant=1", tmp_path / "other")
+
+
+def test_range_nn1_wrapper_allocates_what_the_kernel_writes(recorded):
+    """K1's wrapper hands the kernel its final outputs (int64 index,
+    float32 distance, bool flag, one int32 count) and takes ``None`` for
+    "every query live"."""
+    grid, calls = recorded
+    for qm in (None, torch.ones(grid.n, dtype=torch.bool)):
+        idx, d, resolved, count = nn_cuda._range_nn1_kernel(grid.points, qm,
+                                                            grid)
+        assert (idx.dtype, d.dtype, resolved.dtype, count.dtype) == (
+            torch.int64, torch.float32, torch.bool, torch.int32)
+        assert idx.shape == d.shape == resolved.shape == (grid.n,)
+        assert count.shape == ()
+    assert [c[0] for c in calls] == ["pwicp_range_nn1"] * 2
+
+
+@pytest.mark.parametrize("const,value", [("kRangeLanes", 16),
+                                         ("kRangeBatch", 2),
+                                         ("kRangeFast", 0),
+                                         ("kRangeWalk", 0)])
+def test_sweep_patches_k1_constants(tmp_path, monkeypatch, const, value):
+    """The constants by which ``--sweep`` varies K1 (lanes a query,
+    candidates in flight, the in-run shortcut, the floor of the launch)
+    are each defined once, in K1's source."""
+    monkeypatch.syspath_prepend(str(_cuda.CSRC.parent.parent))
+    import chip_smoke
+
+    dst = chip_smoke.patched_sources(f"{const}={value}", tmp_path)
+    assert (f"constexpr int {const} = {value};"
+            in (dst / "range_nn1.cu").read_text())
+    assert ((dst / "common.cuh").read_text()
+            == (_cuda.CSRC / "common.cuh").read_text())

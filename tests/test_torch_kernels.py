@@ -39,22 +39,100 @@ def _fresh(g):
     return dataclasses.replace(g, _self_nbr=[])
 
 
+def _assert_range_nn1_equal(q, qm, grid):
+    """K1 against its plain version, tolerance 0 (no FMA on either side):
+    flags and count everywhere, ids and distances of the resolved queries
+    (masked ones included: (0, inf)); an unresolved query's window does not
+    hold its true nearest.  Two launches give the same count.  Returns
+    (resolved flags, count)."""
+    n0 = _cuda.LAUNCHES["range_nn1"]
+    ki, kd, kr, _, kn = nn_cuda.range_nn1_counted(q, qm, grid)
+    assert _cuda.LAUNCHES["range_nn1"] == n0 + 1
+    pi, pd, pr, pn = nn_cuda.range_nn1_plain(q, qm, grid)
+    assert ki.dtype == torch.int64 and kr.dtype == torch.bool
+    assert bool((kr == pr).all())
+    assert bool((ki[kr] == pi[kr]).all())
+    assert bool((kd[kr] == pd[kr]).all())
+    assert bool((ki >= 0).all())
+    assert int(kn) == int(pn) == int((~kr).sum())
+    again = nn_cuda.range_nn1_counted(q, qm, grid)
+    assert int(again[4]) == int(kn)             # reset by every launch
+    assert bool((again[1] == kd).all())
+    return kr, int(kn)
+
+
 def test_range_nn1(grid, cuda):
     rng = np.random.default_rng(4)
     q = grid.points + torch.from_numpy(
         rng.normal(scale=0.005, size=tuple(grid.points.shape)
                    ).astype(np.float32)).to(cuda)
     qm = torch.ones(q.shape[0], dtype=torch.bool, device=cuda)
-    n0 = _cuda.LAUNCHES["range_nn1"]
-    ki, kd, kr, _ = nn_cuda.range_nn1(q, qm, grid)
-    assert _cuda.LAUNCHES["range_nn1"] == n0 + 1
-    pi, pd2 = nn_cuda.range_nn1_plain(q, qm, grid)
-    pd = torch.sqrt(pd2)
-    pr = pd <= float(np.float32(grid.h))
-    assert bool((kr == pr).all())
-    # exact arithmetic on both sides (no FMA): equal ids and distances
-    assert bool((ki[kr] == pi[kr]).all())
-    assert bool((kd[kr] == pd[kr]).all())
+    kr, _ = _assert_range_nn1_equal(q, qm, grid)
+    assert bool(kr.any())
+
+
+@pytest.mark.parametrize("shape", ["stage1_masked", "planning", "sentinel",
+                                   "under_one_block"])
+def test_range_nn1_shapes(cuda, shape):
+    """K1 at the shapes of the main path, scaled down: cell-coherent
+    queries of which some are masked (the stage-1 percentile); a coarse
+    grid, queries in no order, no mask, some outside the target's box
+    (adaptive planning); queries at the 1e30 sentinel, masked and not; and
+    fewer queries than one block serves."""
+    rng = np.random.default_rng(8)
+    pts = terrain_cloud(rng, n_side=150).astype(np.float64)
+    pts = (pts - pts.mean(axis=0)).astype(np.float32)
+    q = pts + rng.normal(scale=0.01, size=pts.shape).astype(np.float32)
+    qm = np.ones(len(q), bool)
+    h = 4.0 * RES
+    if shape == "stage1_masked":
+        qm = rng.uniform(size=len(q)) > 0.3
+        q[rng.choice(len(q), 300, replace=False), 2] += 0.5   # unresolved
+    elif shape == "planning":
+        h = 10.0 * RES
+        q = np.concatenate([q, rng.uniform(-3, 3, (500, 3)
+                                           ).astype(np.float32)])
+        q = q[rng.permutation(len(q))]
+        qm = None
+    elif shape == "sentinel":
+        gone = rng.uniform(size=len(q)) < 0.05
+        q[gone] = 1e30
+        qm = ~gone
+        qm[np.flatnonzero(gone)[:20]] = True     # live at the sentinel
+    else:
+        q, qm = q[:13], qm[:13]
+    g = CellGrid.from_index(build_grid(pts, h), cuda)
+    tq = torch.from_numpy(np.ascontiguousarray(q)).to(cuda)
+    tqm = None if qm is None else torch.from_numpy(qm).to(cuda)
+    kr, kn = _assert_range_nn1_equal(tq, tqm, g)
+    assert bool(kr.any())
+    if shape in ("stage1_masked", "planning"):
+        assert kn > 0
+    if shape == "sentinel":
+        assert kn == 20                  # no window holds a finite distance
+
+
+def test_range_nn1_no_query(grid, cuda):
+    """No query: nothing is launched on the card's side of the entry, the
+    outputs are empty and the count is 0."""
+    i, d, r, _, n = nn_cuda.range_nn1_counted(
+        torch.zeros((0, 3), device=cuda),
+        torch.zeros(0, dtype=torch.bool, device=cuda), grid)
+    assert i.shape == d.shape == r.shape == (0,) and int(n) == 0
+
+
+def test_range_nn1_crowded_cell_and_sentinel(crowded):
+    """A window far larger than any the terrain has (K1 stages and unrolls
+    nothing by window size: one path), targets at the sentinel, masked
+    queries."""
+    g, qm, gone, h = crowded
+    rng = np.random.default_rng(9)
+    q = torch.where(gone[:, None], g.points, g.points + torch.from_numpy(
+        rng.normal(scale=0.5 * h, size=tuple(g.points.shape)
+                   ).astype(np.float32)).to(g.points.device))
+    kr, kn = _assert_range_nn1_equal(q, qm, g)
+    assert 0 < kn < int(qm.sum())
+    assert bool(kr[gone].all())
 
 
 def test_knn_sorted(grid, cuda):
@@ -288,6 +366,26 @@ def test_stage1_rescue_launches_k5(grid, cuda):
     _, d = nn_cuda.nn1_brute_plain(moved, grid.points)
     want = torch.sort(torch.sqrt(d)).values[int(np.float32(grid.n)
                                                 * np.float32(0.75))]
+    assert float(d75) == float(want)
+
+
+def test_stage1_without_unresolved_skips_k5(grid, cuda):
+    """The twin: K1 counts no unresolved query, so the stage-1 percentile
+    launches nothing else (no K5, no plain version) and is exact."""
+    from piecewise_icp_torch.models.piecewise_icp import _stage1_percentile
+
+    moved = grid.points + torch.tensor([0.0, 0.0, 0.2 * grid.h], device=cuda)
+    stable = torch.ones(grid.n, dtype=torch.bool, device=cuda)
+    stable[::5] = False
+    _cuda.reset_counts()
+    d75, exact, n_bad = _stage1_percentile(moved, stable, grid, 0.75)
+    assert n_bad == 0 and bool(exact)
+    assert _cuda.LAUNCHES["range_nn1"] == 1
+    assert _cuda.LAUNCHES["nn1_brute"] == 0
+    assert not _cuda.PLAIN_ON_CUDA
+    _, d = nn_cuda.nn1_brute_plain(moved[stable], grid.points)
+    want = torch.sort(torch.sqrt(d)).values[
+        int(np.float32(int(stable.sum())) * np.float32(0.75))]
     assert float(d75) == float(want)
 
 

@@ -95,6 +95,72 @@ class TestRangeNN1:
         assert np.isinf(td[~qm]).all() and tr[~qm].all()
 
 
+    @pytest.mark.parametrize("shape", ["stage1", "planning"])
+    def test_counted_plain_matches_pallas(self, rng, shape):
+        """The counted entry (what the kernel writes: distance, resolved
+        flag, clamped index, the count of unresolved live queries) against
+        ``grid_range_query`` at K1's two shapes: the stage-1 percentile's
+        (cell-sorted queries, some masked, a fine grid) and adaptive
+        planning's (h = a DTinit, queries in file order, no mask, some
+        outside the target's box)."""
+        t = _cloud(rng)
+        if shape == "stage1":
+            h = 0.1
+            q = np.concatenate([_cloud(rng) + np.float32(0.004),
+                                rng.uniform(-2, 2, (50, 3)
+                                            ).astype(np.float32)])
+            q = _cell_sort(q, jbuild_grid(t, h))
+            qm = np.ones(len(q), bool)
+            qm[::13] = False
+            tqm = torch.from_numpy(qm)
+        else:
+            h = 0.15
+            q = np.concatenate([_cloud(rng) + np.float32(0.02),
+                                rng.uniform(-3, 3, (80, 3)
+                                            ).astype(np.float32)])
+            q = q[rng.permutation(len(q))]
+            qm = np.ones(len(q), bool)
+            tqm = None                       # no mask: every query live
+        grid = jbuild_grid(t, h)
+        ji, jd, jr, strict = (np.asarray(a) for a in grid_range_query(
+            jnp.asarray(q), jnp.asarray(qm), jnp.asarray(grid.points),
+            jnp.asarray(grid.cell_starts), jnp.asarray(grid.origin),
+            jnp.asarray(grid.dims, jnp.int32),
+            jnp.asarray(grid.h, jnp.float32)))
+        ti, td, tr, tstrict, tn = nn_cuda.range_nn1_counted(
+            torch.from_numpy(q), tqm,
+            CellGrid.from_index(build_grid(t, h), CPU))
+        assert tstrict and tn.dtype == torch.int32 and tn.ndim == 0
+        ti, td, tr = ti.numpy(), td.numpy(), tr.numpy()
+        # the count is that of the flags, exactly
+        assert int(tn) == int((qm & ~tr).sum())
+        assert (tr | ~jr).all()
+        if bool(strict):
+            np.testing.assert_array_equal(tr, jr)
+        real = jr & qm
+        assert real.mean() > 0.5 and 0 < int(tn) < len(q)
+        # distances of resolved queries within ULP (see the module's note);
+        # the same nearest point
+        np.testing.assert_array_max_ulp(td[real], jd[real], maxulp=ULP)
+        np.testing.assert_array_equal(ti[real], ji[real])
+        assert np.isinf(td[~qm]).all() and tr[~qm].all()
+        assert (ti >= 0).all()
+        # the public entry is the counted one without the count
+        pi, pd, pr, pstrict = nn_cuda.range_nn1(
+            torch.from_numpy(q), tqm,
+            CellGrid.from_index(build_grid(t, h), CPU))
+        np.testing.assert_array_equal(pi.numpy(), ti)
+        np.testing.assert_array_equal(pd.numpy(), td)
+        np.testing.assert_array_equal(pr.numpy(), tr)
+
+    def test_no_query(self, rng):
+        """No query at all: empty outputs and a count of 0."""
+        g = CellGrid.from_index(build_grid(_cloud(rng), 0.1), CPU)
+        i, d, r, _, n = nn_cuda.range_nn1_counted(
+            torch.zeros((0, 3)), torch.zeros(0, dtype=torch.bool), g)
+        assert i.shape == d.shape == r.shape == (0,) and int(n) == 0
+
+
 class TestKnnSorted:
     def test_plain_matches_pallas(self, rng):
         pts = _cloud(rng)
