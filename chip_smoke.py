@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed 0] [--sweep VARIANT ...]
+    python3 chip_smoke.py [--seed 0] [--only PHASE ...] [--sweep VARIANT ...]
 
 Builds the port's CUDA kernels from ``piecewise_icp_torch/csrc`` (nvcc),
 holds each kernel against its plain PyTorch version at the main path's
@@ -22,10 +22,19 @@ two entry points on the card:
    isolated points per epoch, which the unified path declines: the staged
    SOR re-measures every unresolved query on the card (and takes the
    brute k-NN on the card when no grid fits);
-2. a 20-epoch 4D campaign of 142,884-point epochs drifting 2 cm a step
+2. reproducibility: a smoke epoch's PatchSet and a whole registration of
+   the smoke pair, each twice, bit for bit;
+3. the smoke pair under the symmetric objective and under inverse-variance
+   weights; with one block of the source raised 2 mm and the change
+   screen on; with ``isVisual: 1`` (the four colored PCDs), under
+   ``PWICP_PROFILE_DIR`` (a trace) and ``PWICP_NO_UNIFIED=1`` (the staged
+   path at full width); and through the C ABI
+   (``PiecewiseICP_pair_call`` by ctypes);
+4. a 20-epoch 4D campaign of 142,884-point epochs drifting 2 cm a step
    through ``piecewise_icp_torch.piecewise_icp_4d_call(...,
    device="cuda")`` in adaptive mode (the plan advances its target) with
-   auto DT-init and Kalman smoothing,
+   auto DT-init and Kalman smoothing, then its first 5 epochs twice (once
+   profiled), whose tables must be byte-equal,
 
 each checked against the known transforms, with the launch counts of the
 kernels read around each path.  Any failed check raises, as does a loaded
@@ -35,6 +44,10 @@ last line of standard output is the JSON summary ``{"ok": true, "device":
 one before that the per-kernel JSON record (launches counted in the 4D
 campaign, which runs all five kernels; times, bounds and errors of this
 run; the whole-loop launch of the label propagation has a row of its own).
+
+``python3 chip_smoke.py --only PHASE [PHASE ...]`` builds the kernels and
+runs only the named phases of 2 and 3 (or the pair of 1), with no JSON
+record: the way to run one phase on another tree, such as a parent's.
 
 ``python3 chip_smoke.py --sweep VARIANT [VARIANT ...]`` runs none of the
 above: it times K1-K4 and K4's whole loop at the same shapes (K1 at both of
@@ -57,6 +70,7 @@ from __future__ import annotations
 import argparse
 import collections
 import dataclasses
+import hashlib
 import json
 import pathlib
 import re
@@ -130,6 +144,9 @@ N_RESCUE = 49152
 # the staged SOR at full width: isolated points scattered above both epochs,
 # more than the rescue budget of the unified path (4,096), which declines
 N_SPARSE = 6000
+
+# the tables two runs of one campaign must write byte for byte
+REPRO_TABLES = ("TransMatrices_toRef.txt", "TransPara_AbsError.txt")
 
 OUTPUTS_4D = ("TransMatrices.txt", "TransParameters.txt",
               "TransMatrices_toRef.txt", "TransParameters_toRef.txt",
@@ -226,13 +243,38 @@ def window_pairs(grid, queries=None, q_mask=None) -> int:
     return int(per_query.sum())
 
 
+def smoke_pair(seed: int):
+    """The smoke pair as a user hands it over: (cloud1, cloud2, T_true)."""
+    from piecewise_icp_torch.utils.synth import make_pair
+
+    return make_pair(np.random.default_rng(seed), PARAMS, n_side=N_SIDE,
+                     extent=EXTENT)
+
+
+def truth_mm(t_est: np.ndarray, t_true: np.ndarray, pts: np.ndarray):
+    """Mean and max displacement (mm) that T_est @ T_true leaves on
+    ``pts`` (ideally none)."""
+    from piecewise_icp_torch.ops.transform import apply_transform_np
+
+    p = pts.astype(np.float64)
+    d = np.linalg.norm(apply_transform_np(p, t_est @ t_true) - p, axis=1)
+    return 1e3 * float(d.mean()), 1e3 * float(d.max())
+
+
+def bit_diff(a: np.ndarray, b: np.ndarray) -> int:
+    """Elements of two arrays whose bits differ (-1: other shape or type)."""
+    a, b = np.asarray(a), np.asarray(b)
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return -1
+    u = np.dtype(f"u{a.dtype.itemsize}")
+    return int(np.count_nonzero(np.ascontiguousarray(a).view(u)
+                                != np.ascontiguousarray(b).view(u)))
+
+
 def smoke_epochs(seed: int):
     """The two 142,884-point epochs of the smoke pair, centred on the first
     (float32)."""
-    from piecewise_icp_torch.utils.synth import make_pair
-
-    c1, c2, _ = make_pair(np.random.default_rng(seed), PARAMS, n_side=N_SIDE,
-                          extent=EXTENT)
+    c1, c2, _ = smoke_pair(seed)
     shift = -c1.astype(np.float64).mean(axis=0)
     return ((c1.astype(np.float64) + shift).astype(np.float32),
             (c2.astype(np.float64) + shift).astype(np.float32))
@@ -798,12 +840,9 @@ def pair_phase(seed: int) -> dict:
     import piecewise_icp_torch as pwt
     from piecewise_icp_torch.models.pairwise import register_pair
     from piecewise_icp_torch.ops import _cuda
-    from piecewise_icp_torch.ops.transform import apply_transform_np
-    from piecewise_icp_torch.utils.synth import make_pair
     from piecewise_icp_torch.io import formats, read_pcd, write_pcd
 
-    rng = np.random.default_rng(seed)
-    c1, c2, t_true = make_pair(rng, PARAMS, n_side=N_SIDE, extent=EXTENT)
+    c1, c2, t_true = smoke_pair(seed)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         write_pcd(tmp / "Epoch_000.pcd", c1)
@@ -836,13 +875,10 @@ def pair_phase(seed: int) -> dict:
     require(vcm.shape == (6, 6) and np.isfinite(vcm).all()
             and (np.diag(vcm) > 0).all(), "TransMatrix.txt: bad VCM")
     # the estimate maps cloud2 back onto cloud1: T_est @ T_true ~ identity
-    m = t_est @ t_true
-    disp = np.linalg.norm(apply_transform_np(c2.astype(np.float64), m)
-                          - c2.astype(np.float64), axis=1)
-    log(f"pair: residual displacement vs truth mean {disp.mean() * 1e3:.4f}"
-        f" mm, max {disp.max() * 1e3:.4f} mm (bounds 2 mm / 5 mm)")
-    require(disp.mean() < 2e-3 and disp.max() < 5e-3,
-            "pair result outside the truth bounds")
+    mean, mx = truth_mm(t_est, t_true, c2)
+    log(f"pair: residual displacement vs truth mean {mean:.4f} mm, max "
+        f"{mx:.4f} mm (bounds 2 mm / 5 mm)")
+    require(mean < 2.0 and mx < 5.0, "pair result outside the truth bounds")
     for name in PAIR_KERNELS:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the pair path")
@@ -877,7 +913,6 @@ def staged_pair_phase(seed: int) -> dict:
     import piecewise_icp_torch as pwt
     from piecewise_icp_torch.models.pairwise import register_pair
     from piecewise_icp_torch.ops import _cuda
-    from piecewise_icp_torch.ops.transform import apply_transform_np
     from piecewise_icp_torch.utils.synth import make_pair
 
     c1, c2, t_true = make_pair(np.random.default_rng(seed), PARAMS,
@@ -895,15 +930,12 @@ def staged_pair_phase(seed: int) -> dict:
     for name in ("range_nn1", "seg_stats", "prop_round", "propagate"):
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the staged path")
-    disp = np.linalg.norm(apply_transform_np(
-        c2.astype(np.float64), res.trans_mat @ t_true)
-        - c2.astype(np.float64), axis=1)
+    mean, mx = truth_mm(res.trans_mat, t_true, c2)
     log(f"staged pair ({len(c1)} points): residual vs truth mean "
-        f"{disp.mean() * 1e3:.4f} mm, max {disp.max() * 1e3:.4f} mm (bounds "
-        f"2 mm / 5 mm); {wall:.3f} s; patches {res.core.num_patches}; "
-        f"guard draws {res.guard_draws}; launches {launches}")
-    require(disp.mean() < 2e-3 and disp.max() < 5e-3,
-            "staged pair outside the truth bounds")
+        f"{mean:.4f} mm, max {mx:.4f} mm (bounds 2 mm / 5 mm); {wall:.3f} s;"
+        f" patches {res.core.num_patches}; guard draws {res.guard_draws}; "
+        f"launches {launches}")
+    require(mean < 2.0 and mx < 5.0, "staged pair outside the truth bounds")
     return launches
 
 
@@ -945,7 +977,6 @@ def sparse_staged_phase(seed: int) -> dict:
     from piecewise_icp_torch.ops.preprocess import (_SOR_RESCUE,
                                                     sor_keep_mask_device,
                                                     voxel_downsample)
-    from piecewise_icp_torch.ops.transform import apply_transform_np
     from piecewise_icp_torch.utils.synth import make_pair
 
     rng = np.random.default_rng(seed + 3)
@@ -1014,16 +1045,375 @@ def sparse_staged_phase(seed: int) -> dict:
     for name in ("range_nn1", "seg_stats", "prop_round", "propagate"):
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched on the sparse staged pair")
-    disp = np.linalg.norm(apply_transform_np(
-        c2.astype(np.float64), res.trans_mat @ t_true)
-        - c2.astype(np.float64), axis=1)
+    mean, mx = truth_mm(res.trans_mat, t_true, c2)
     log(f"sparse staged pair ({len(s1)} points): residual vs truth mean "
-        f"{disp.mean() * 1e3:.4f} mm, max {disp.max() * 1e3:.4f} mm (bounds "
-        f"2 mm / 5 mm); {wall:.3f} s; patches {res.core.num_patches}; "
-        f"guard draws {res.guard_draws}; launches {launches}")
-    require(disp.mean() < 2e-3 and disp.max() < 5e-3,
+        f"{mean:.4f} mm, max {mx:.4f} mm (bounds 2 mm / 5 mm); {wall:.3f} s;"
+        f" patches {res.core.num_patches}; guard draws {res.guard_draws}; "
+        f"launches {launches}")
+    require(mean < 2.0 and mx < 5.0,
             "sparse staged pair outside the truth bounds")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# reproducibility, ICP variants, change screen, exports and hooks, C ABI
+# ---------------------------------------------------------------------------
+
+
+def reproducible_phase(seed: int) -> None:
+    """Two runs of one input give the same bits: the PatchSet of one smoke
+    epoch (unified SOR + segmentation), and a whole registration of the
+    smoke pair (where it differs, the first iteration whose packed stats
+    differ is named).  A third registration under
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` lists the
+    operations PyTorch warns about and whether the result kept its bits
+    (that mode also fills fresh memory with NaN): reported, not
+    required."""
+    import warnings
+
+    import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.models import piecewise_icp as core_mod
+    from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.models.segmentation_device import \
+        preprocess_segment_device
+    from piecewise_icp_torch.ops.preprocess import voxel_downsample
+    from piecewise_icp_torch.ops.segment_ops import segment_sum
+
+    c1, c2, _ = smoke_pair(seed)
+    cfg = pwt.PiecewiseICPConfig()
+    down = voxel_downsample(c1, RES)
+    sets = []
+    for _ in range(2):
+        ps, nsv, kept = preprocess_segment_device(
+            down, RES, SOR_K, cfg.sor_std_mult_pair, SV, KNN_NORMALS, cfg,
+            device="cuda")
+        sets.append(dict(ps.to_numpy(), kept=kept))
+    diff = {f: bit_diff(sets[0][f], sets[1][f]) for f in sets[0]}
+    log(f"reproducible: PatchSet of one smoke epoch ({len(down)} points "
+        f"after voxelisation, {len(sets[0]['centroids'])} patches) built "
+        f"twice: elements whose bits differ, by field {diff}")
+    # what the fixed order costs: the second moments of the patches (the
+    # widest of the six float segment sums a cloud makes) against a float
+    # index_add_, which adds by atomics
+    x = torch.from_numpy(sets[0]["points"]).to("cuda")
+    ids = torch.from_numpy(sets[0]["labels"]).to("cuda").long()
+    n_seg = len(sets[0]["centroids"])
+    outer = (x[:, :, None] * x[:, None, :]).reshape(-1, 9)
+    sink = torch.where(ids >= 0, ids, n_seg)
+    fixed_ms = time_ms(lambda: segment_sum(outer, ids, n_seg))
+    atomic_ms = time_ms(lambda: torch.zeros(
+        n_seg + 1, 9, device="cuda").index_add_(0, sink, outer))
+    log(f"reproducible: one segment sum of {len(x)} x 9 floats into "
+        f"{n_seg} patches: fixed order {fixed_ms:.3f} ms, index_add_ "
+        f"(atomics) {atomic_ms:.3f} ms (median of 5, CUDA events)")
+
+    records: list = []
+    step = core_mod._iteration_step
+
+    def recording(*args, **kw):
+        out = step(*args, **kw)
+        records[-1].append(out[0].copy())
+        return out
+
+    core_mod._iteration_step = recording
+    try:
+        outs = []
+        for _ in range(2):
+            records.append([])
+            outs.append(register_pair(c1, c2, cfg))
+    finally:
+        core_mod._iteration_step = step
+    a, b = outs
+    pair_diff = {"trans_mat": bit_diff(a.trans_mat, b.trans_mat),
+                 "vcm": bit_diff(a.vcm, b.vcm)}
+    for side in ("patches1", "patches2"):
+        for f, v in getattr(a.core, side).to_numpy().items():
+            n = bit_diff(v, getattr(getattr(b.core, side), f))
+            if n:
+                pair_diff[f"{side}.{f}"] = n
+    first = next((i for i, (x, y) in enumerate(zip(*records))
+                  if bit_diff(x, y)), None)
+    where = ("every iteration's stats equal" if first is None else
+             f"iteration {first + 1} is the first whose stats differ, in "
+             f"entries {np.flatnonzero(records[0][first] != records[1][first]).tolist()}")
+    log(f"reproducible: register_pair of the smoke pair twice "
+        f"({len(records[0])} / {len(records[1])} iterations, guard draws "
+        f"{a.guard_draws} / {b.guard_draws}): elements whose bits differ "
+        f"{pair_diff}; {where}")
+
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            det = register_pair(c1, c2, cfg)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    msgs = sorted({str(w.message).splitlines()[0][:150] for w in caught})
+    log(f"reproducible: under torch.use_deterministic_algorithms(warn_only)"
+        f" the transform's bits differ in {bit_diff(det.trans_mat, a.trans_mat)}"
+        f" elements; {len(msgs)} distinct warnings: {msgs}")
+    require(not any(diff.values()), f"reproducible: the PatchSet differs "
+            f"between two runs: {diff}")
+    require(not any(pair_diff.values()), f"reproducible: register_pair "
+            f"differs between two runs: {pair_diff}; {where}")
+
+
+def variants_phase(seed: int) -> None:
+    """The smoke pair under the symmetric objective and under inverse-
+    variance weights beside the reference objective: truth bounds, the
+    pair path's kernels launched, no plain version on a CUDA tensor,
+    iterations and the warm time (median of 3)."""
+    import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.ops import _cuda
+
+    c1, c2, t_true = smoke_pair(seed)
+    for label, over in (("reference", {}),
+                        ("symmetric", dict(icp_variant="symmetric")),
+                        ("inverse_variance",
+                         dict(icp_weighting="inverse_variance"))):
+        cfg = pwt.PiecewiseICPConfig(**over)
+        _cuda.reset_counts()
+        res = register_pair(c1, c2, cfg)
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        require(not _cuda.PLAIN_ON_CUDA, f"variant {label}: plain versions "
+                f"ran on CUDA tensors: {dict(_cuda.PLAIN_ON_CUDA)}")
+        for name in PAIR_KERNELS:
+            require(launches.get(name, 0) > 0,
+                    f"variant {label}: kernel {name} was not launched")
+        warm = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            register_pair(c1, c2, cfg)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        mean, mx = truth_mm(res.trans_mat, t_true, c2)
+        log(f"variant {label}: residual vs truth mean {mean:.4f} mm, max "
+            f"{mx:.4f} mm (bounds 2 mm / 5 mm); outer iterations "
+            f"{res.core.iterations}, inner ICP iterations "
+            f"{res.core.total_icp_iters}; guard draws {res.guard_draws}; "
+            f"warm register_pair median of 3 "
+            f"{statistics.median(warm):.3f} s "
+            f"({', '.join(f'{w:.3f}' for w in warm)}); launches {launches}")
+        require(mean < 2.0 and mx < 5.0,
+                f"variant {label} outside the truth bounds")
+
+
+# the change screen's scene: one square block of the source epoch, 15% of
+# its area, raised 2 mm (below the 4 mm DTmin floor), as the leak of the
+# JAX package's refine tests (tests/test_models.py, leak_frac 0.15)
+CHANGE_FRAC = 0.15
+CHANGE_MM = 2.0
+
+
+def change_block(c2: np.ndarray) -> np.ndarray:
+    """Mask of the changed block: a square of CHANGE_FRAC of the extent's
+    area at the corner of the smallest x and y."""
+    side = EXTENT * np.sqrt(CHANGE_FRAC)
+    lo = c2[:, :2].min(axis=0)
+    return ((c2[:, 0] < lo[0] + side) & (c2[:, 1] < lo[1] + side))
+
+
+def change_screen_phase(seed: int) -> None:
+    """The smoke pair with a coherent sub-LoD change in the source, with
+    the refine off: the change screen must drop patches and the result must
+    meet the truth bounds on the unchanged part."""
+    import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.ops import _cuda
+
+    c1, c2, t_true = smoke_pair(seed)
+    block = change_block(c2)
+    c2c = c2.copy()
+    c2c[block, 2] += np.float32(CHANGE_MM * 1e-3)
+    res = {}
+    for screen in (False, True):
+        cfg = pwt.PiecewiseICPConfig(robust_refine=False,
+                                     change_screen=screen)
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        res[screen] = register_pair(c1, c2c, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        require(not _cuda.PLAIN_ON_CUDA, "change screen: plain versions ran "
+                f"on CUDA tensors: {dict(_cuda.PLAIN_ON_CUDA)}")
+        for name in PAIR_KERNELS:
+            require(_cuda.LAUNCHES.get(name, 0) > 0,
+                    f"change screen: kernel {name} was not launched")
+        r = res[screen]
+        mean, mx = truth_mm(r.trans_mat, t_true, c2[~block])
+        log(f"change screen {'on' if screen else 'off'} ({int(block.sum())} "
+            f"of {len(c2)} source points raised {CHANGE_MM} mm): "
+            f"final_n_stable {r.core.final_n_stable} of "
+            f"{r.core.num_patches[1]} patches, stable ratio "
+            f"{r.core.stable_ratio:.4f}; residual vs truth on the unchanged "
+            f"part mean {mean:.4f} mm, max {mx:.4f} mm; tz "
+            f"{1e3 * r.trans_mat[2, 3]:.4f} mm; {wall:.3f} s")
+    require(res[True].core.final_n_stable < res[False].core.final_n_stable,
+            "change screen: no patch was excluded")
+    mean, mx = truth_mm(res[True].trans_mat, t_true, c2[~block])
+    require(mean < 2.0 and mx < 5.0,
+            "change screen: outside the truth bounds on the unchanged part")
+
+
+def exports_hooks_phase(seed: int) -> None:
+    """``isVisual: 1`` through the file entry point writes the four colored
+    PCDs; ``PWICP_PROFILE_DIR`` yields a trace; ``PWICP_NO_UNIFIED=1`` runs
+    the smoke pair through the staged path at full width."""
+    import os
+
+    import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.io import read_pcd, write_pcd
+    from piecewise_icp_torch.models import pairwise
+    from piecewise_icp_torch.ops import _cuda
+
+    c1, c2, t_true = smoke_pair(seed)
+    captured = []
+    write_viz = pairwise.write_visualizations
+
+    def capture(prefix, result):
+        captured.append(result)
+        write_viz(prefix, result)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_pcd(tmp / "Epoch_000.pcd", c1)
+        write_pcd(tmp / "Epoch_001.pcd", c2)
+        cfg = pwt.PiecewiseICPConfig(path1=str(tmp / "Epoch_000.pcd"),
+                                     path2=str(tmp / "Epoch_001.pcd"),
+                                     visual=True)
+        conf = tmp / "config_pair.txt"
+        cfg.to_reference_file(conf)
+        prefix = str(tmp / "Vis_")
+        pairwise.write_visualizations = capture
+        try:
+            ok = pwt.piecewise_icp_pair_call(str(conf), prefix)
+        finally:
+            pairwise.write_visualizations = write_viz
+        require(ok, "isVisual: piecewise_icp_pair_call returned False")
+        core = captured[0].core
+        sizes = {}
+        for name in ("TransMatrix.txt", "Patches1_colored.pcd",
+                     "Patches2_colored.pcd", "StableUnstable2.pcd",
+                     "ThreeClouds.pcd"):
+            require((tmp / f"Vis_{name}").exists(), f"isVisual: {name} "
+                    "missing")
+            if name.endswith(".pcd"):
+                sizes[name] = len(read_pcd(tmp / f"Vis_{name}"))
+        want = {"Patches1_colored.pcd": len(core.patches1.points),
+                "Patches2_colored.pcd": len(core.patches2.points),
+                "StableUnstable2.pcd": len(core.patches2.points),
+                "ThreeClouds.pcd": len(c1) + 2 * len(c2)}
+        log(f"isVisual: the four views written, points {sizes} (patch sets "
+            f"{want['Patches1_colored.pcd']} / "
+            f"{want['Patches2_colored.pcd']})")
+        require(sizes == want, f"isVisual: point counts {sizes} != {want}")
+
+        os.environ["PWICP_PROFILE_DIR"] = str(tmp / "trace")
+        try:
+            pairwise.register_pair(c1, c2, pwt.PiecewiseICPConfig())
+        finally:
+            del os.environ["PWICP_PROFILE_DIR"]
+        traces = sorted((tmp / "trace").glob("*.json"))
+        require(len(traces) == 1, f"PWICP_PROFILE_DIR: traces {traces}")
+        kb = traces[0].stat().st_size / 1024
+        has_kernel = b"pwicp::" in traces[0].read_bytes()
+        log(f"PWICP_PROFILE_DIR: one trace of register_pair, {kb:.0f} KiB, "
+            f"the port's kernels in it: {has_kernel}")
+        require(has_kernel, "PWICP_PROFILE_DIR: no kernel of the port in "
+                "the trace")
+
+    unified = pairwise.preprocess_segment_device
+    calls = []
+    pairwise.preprocess_segment_device = \
+        lambda *a, **k: calls.append(1) or unified(*a, **k)
+    os.environ["PWICP_NO_UNIFIED"] = "1"
+    try:
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        res = pairwise.register_pair(c1, c2, pwt.PiecewiseICPConfig())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        del os.environ["PWICP_NO_UNIFIED"]
+        pairwise.preprocess_segment_device = unified
+    launches = dict(_cuda.LAUNCHES)
+    require(not calls, "PWICP_NO_UNIFIED: the unified path ran")
+    require(not _cuda.PLAIN_ON_CUDA, "PWICP_NO_UNIFIED: plain versions ran "
+            f"on CUDA tensors: {dict(_cuda.PLAIN_ON_CUDA)}")
+    for name in PAIR_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"PWICP_NO_UNIFIED: kernel {name} was not launched")
+    mean, mx = truth_mm(res.trans_mat, t_true, c2)
+    log(f"PWICP_NO_UNIFIED: the smoke pair through the staged path "
+        f"({len(c1)} points): residual vs truth mean {mean:.4f} mm, max "
+        f"{mx:.4f} mm (bounds 2 mm / 5 mm); {wall:.3f} s; patches "
+        f"{res.core.num_patches}; launches {launches}")
+    require(mean < 2.0 and mx < 5.0,
+            "PWICP_NO_UNIFIED: outside the truth bounds")
+
+
+def capi_phase(seed: int) -> None:
+    """``PiecewiseICP_pair_call`` of the port's C ABI through ctypes, with
+    ``PWICP_TORCH_DEVICE`` unset (the card): returns true, writes the
+    report, launches the pair path's kernels."""
+    import ctypes
+    import os
+    import sysconfig
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch import native
+    from piecewise_icp_torch.io import formats, write_pcd
+    from piecewise_icp_torch.ops import _cuda
+
+    header = pathlib.Path(sysconfig.get_paths()["include"]) / "Python.h"
+    log(f"C ABI: g++ {shutil.which('g++')}, {header} exists: "
+        f"{header.exists()}")
+    t0 = time.perf_counter()
+    path = native.build_capi()
+    log(f"C ABI: {pathlib.Path(path).name} built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    lib = ctypes.cdll.LoadLibrary(path)
+    lib.PiecewiseICP_pair_call.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+    lib.PiecewiseICP_pair_call.restype = ctypes.c_bool
+    c1, c2, t_true = smoke_pair(seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_pcd(tmp / "Epoch_000.pcd", c1)
+        write_pcd(tmp / "Epoch_001.pcd", c2)
+        cfg = pwt.PiecewiseICPConfig(path1=str(tmp / "Epoch_000.pcd"),
+                                     path2=str(tmp / "Epoch_001.pcd"))
+        conf = tmp / "config_pair.txt"
+        cfg.to_reference_file(conf)
+        out = str(tmp) + os.sep
+        os.environ.pop("PWICP_TORCH_DEVICE", None)
+        _cuda.reset_counts()
+        ok = lib.PiecewiseICP_pair_call(str(conf).encode(), out.encode())
+        launches = dict(_cuda.LAUNCHES)
+        require(ok is True, "C ABI: PiecewiseICP_pair_call returned false")
+        require((tmp / "TransMatrix.txt").exists(),
+                "C ABI: TransMatrix.txt missing")
+        rep = formats.read_trans_matrix_report(tmp / "TransMatrix.txt")
+    require(not _cuda.PLAIN_ON_CUDA, "C ABI: plain versions ran on CUDA "
+            f"tensors: {dict(_cuda.PLAIN_ON_CUDA)}")
+    for name in PAIR_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"C ABI: kernel {name} was not launched")
+    mean, mx = truth_mm(rep["trans_mat"], t_true, c2)
+    log(f"C ABI: PiecewiseICP_pair_call -> true, TransMatrix.txt written; "
+        f"residual vs truth mean {mean:.4f} mm, max {mx:.4f} mm; launches "
+        f"{launches}")
+    require(mean < 2.0 and mx < 5.0, "C ABI: outside the truth bounds")
 
 
 def four_d_phase(seed: int, k5_ms: float) -> dict:
@@ -1090,12 +1480,23 @@ def four_d_phase(seed: int, k5_ms: float) -> dict:
         plan = formats.read_reg_pairs(out / "RegPairFile.txt")
         phases = [json.loads(ln) for ln in
                   (out / "phase_timings.jsonl").read_text().splitlines()]
-        # the first five epochs again (4 pairs, warm) under the profiler
-        cfg.path2 = str(tmp / "out_profiled") + "/"
-        cfg.to_reference_file(conf)
-        profile_run(lambda: pwt.piecewise_icp_4d_call(
-            str(conf), 0, 5, -1, device="cuda", kalman_enabled=True),
-            "4d, 5 epochs")
+        digest = {name: hashlib.sha256((out / name).read_bytes())
+                  .hexdigest()[:16] for name in REPRO_TABLES}
+        # the first five epochs again (4 pairs, warm): under the profiler,
+        # then without it; the two must write the same bytes
+        tables = []
+        for label in ("profiled", "plain"):
+            cfg.path2 = str(tmp / f"out_5_{label}") + "/"
+            cfg.to_reference_file(conf)
+            run = (lambda: pwt.piecewise_icp_4d_call(
+                str(conf), 0, 5, -1, device="cuda", kalman_enabled=True))
+            if label == "profiled":
+                profile_run(run, "4d, 5 epochs")
+            else:
+                require(run(), "4d, 5 epochs: piecewise_icp_4d_call "
+                        "returned False")
+            tables.append({name: (tmp / f"out_5_{label}" / name).read_bytes()
+                           for name in REPRO_TABLES})
 
     for name in REPLACES:
         require(launches.get(name, 0) > 0,
@@ -1138,7 +1539,13 @@ def four_d_phase(seed: int, k5_ms: float) -> dict:
             "4d: bad error table")
     log(f"4d: chained errors vs truth max {errors[:, :3].max():.3f} mgon, "
         f"{errors[:, 3:].max():.4f} mm; mean {errors[:, :3].mean():.3f} "
-        f"mgon, {errors[:, 3:].mean():.4f} mm (bounds 200 mgon / 5 mm)")
+        f"mgon, {errors[:, 3:].mean():.4f} mm (bounds 200 mgon / 5 mm); "
+        f"unrounded max {errors[:, :3].max()!r} mgon, "
+        f"{errors[:, 3:].max()!r} mm; table digests {digest}")
+    same = {name: tables[0][name] == tables[1][name] for name in REPRO_TABLES}
+    log(f"4d, 5 epochs twice (profiled, then not): tables byte-equal {same}")
+    require(all(same.values()), "4d, 5 epochs: two runs wrote different "
+            f"tables: {same}")
     require(errors[:, :3].max() < 200.0 and errors[:, 3:].max() < 5.0,
             "4d: chained errors outside the bounds")
     gt_params = np.stack([matrix_to_params_gon(g) for g in gt[1:]])
@@ -1253,8 +1660,6 @@ def kernel_times(variant: str, seed: int) -> dict:
     rounds and K1's ids and distances at both shapes: equal across
     variants that compute the same function (``kRangeWalk=0``, the floor
     of K1's launch, meets no candidate and does not)."""
-    import hashlib
-
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1347,9 +1752,19 @@ def kernel_times(variant: str, seed: int) -> dict:
             "ms": ms}
 
 
+# the phases ``--only`` may name (those that need no kernel timings)
+ONLY_PHASES = {"reproducible": reproducible_phase, "variants": variants_phase,
+               "change_screen": change_screen_phase,
+               "exports_hooks": exports_hooks_phase, "capi": capi_phase,
+               "pair": pair_phase}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", nargs="+", choices=sorted(ONLY_PHASES),
+                    help="build the kernels and run only these phases of "
+                    "the smoke (no JSON record)")
     ap.add_argument("--sweep", nargs="+", metavar="VARIANT",
                     help="time the grid kernels only, one JSON line a "
                     "variant: 'base', or NAME=VALUE[,NAME=VALUE...] written "
@@ -1401,12 +1816,22 @@ def main(argv=None) -> int:
             log(f"  ptxas: {line.strip()}")
     _cuda.lib()
 
+    if args.only:
+        for name in args.only:
+            ONLY_PHASES[name](args.seed)
+        log(f"chip_smoke: phases {args.only} passed")
+        return 0
     kern = kernel_phases(args.seed)
     kern["nn1_brute"] = k5_phase(args.seed)
     resolution_check(args.seed)
     pair_phase(args.seed)
     staged_pair_phase(args.seed)
     sparse_staged_phase(args.seed)
+    reproducible_phase(args.seed)
+    variants_phase(args.seed)
+    change_screen_phase(args.seed)
+    exports_hooks_phase(args.seed)
+    capi_phase(args.seed)
     launches = four_d_phase(args.seed, kern["nn1_brute"]["ms"])
     foreign = sorted(m for m in sys.modules
                      if m.split(".")[0] in ("jax", "jaxlib",

@@ -38,7 +38,6 @@ from ..ops.transform import matrix_to_params_gon
 from .chaining import absolute_errors, chain_to_reference
 from .kalman import kalman_smooth_transforms
 from .pairwise import prepare_target, register_pair, write_pair_report
-from .piecewise_icp import check_slice
 
 
 def _mode_name(pair_mode: int) -> str:
@@ -54,6 +53,7 @@ def _load_cloud_cached(path: str) -> np.ndarray:
 
 def adaptive_pair_sequence(file_list: Sequence[str], start_epoch: int,
                            dt_init: float, ratio_thd: float,
+                           batch_window: int = 4,
                            device: "str | torch.device" = "cuda"
                            ) -> Tuple[Dict[int, int], Dict[int, float]]:
     """Adaptive registration-pair planning (``calAdaptivePairSequence``,
@@ -68,9 +68,10 @@ def adaptive_pair_sequence(file_list: Sequence[str], start_epoch: int,
     source that scans it), and each overlap runs through K1
     (:func:`overlap_ratio_grid`); a target whose extent admits no dense
     grid takes the brute :func:`overlap_ratio` (K5).  The JAX package
-    probes candidates in windows to overlap its asynchronous dispatch;
-    here each ratio is read as it is computed, so the scan is the plain
-    sequential one, which gives the same plan.
+    probes candidates in windows of ``batch_window`` to overlap its
+    asynchronous dispatch; here each ratio is read as it is computed, so
+    the scan is the plain sequential one, which gives the same plan, and
+    ``batch_window`` is accepted for the reference's signature and unused.
     """
     dev = resolve_device(device)
     pairs: Dict[int, int] = {}
@@ -178,7 +179,6 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
     """
     from ..ops import _cuda
 
-    check_slice(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda":
         _cuda.lib()      # build and load once, before the prefetch thread

@@ -59,23 +59,47 @@ def point_to_plane_icp(target: torch.Tensor, target_normals: torch.Tensor,
                        source: torch.Tensor, source_mask: torch.Tensor,
                        max_iterations: int = 100,
                        transformation_eps: float = 1e-8,
-                       fitness_eps: float = 1e-6
+                       fitness_eps: float = 1e-6,
+                       source_normals: torch.Tensor | None = None,
+                       symmetric: bool = False,
+                       target_var: torch.Tensor | None = None,
+                       source_var: torch.Tensor | None = None
                        ) -> Tuple[torch.Tensor, int]:
-    """Iterative point-to-plane alignment of ``source`` onto ``target``
-    (reference objective, uniform weights).  Returns (4x4 transform f32,
-    iterations executed)."""
+    """Iterative point-to-plane alignment of ``source`` onto ``target``.
+
+    With ``symmetric=True`` (and ``source_normals``, rotated with the
+    source by every update) the residuals use the sign-aligned bisector
+    ``0.5 * (n_t + s * n_s)`` of the matched normals, s = sign(n_t . n_s)
+    with 0 taken as +1, left unnormalised: |n_t + n_s| < 2 where the
+    normals disagree, which down-weights inconsistent correspondences.
+    With ``target_var`` and ``source_var`` every row is weighted by
+    sqrt(iv / mean iv), iv = 1 / max(var_t[idx] + var_s, 1e-14), the mean
+    over the masked sources.  The defaults are the reference objective
+    with uniform weights.  Returns (4x4 transform f32, iterations
+    executed)."""
     f32 = dict(dtype=target.dtype, device=target.device)
     eye6 = 1e-12 * torch.eye(6, **f32)
     n_valid = torch.clamp(source_mask.sum(), min=1).to(target.dtype)
+    weighted = target_var is not None and source_var is not None
     trans = torch.eye(4, **f32)
     src = source
+    src_n = (source_normals if source_normals is not None
+             else torch.zeros_like(source))
     prev_mse = torch.tensor(torch.inf, **f32)
     mse = torch.tensor(torch.inf, **f32)
     it = 0
     while True:
         idx, dist = _masked_nn(src, source_mask, target, target_mask)
-        a, l = _p2pl_rows(src, target[idx], target_normals[idx])
+        tgt_n = target_normals[idx]
+        if symmetric:
+            sign = torch.sign((tgt_n * src_n).sum(dim=1, keepdim=True))
+            tgt_n = 0.5 * (tgt_n + torch.where(sign == 0, 1.0, sign) * src_n)
+        a, l = _p2pl_rows(src, target[idx], tgt_n)
         w = source_mask.to(target.dtype)[:, None]
+        if weighted:
+            iv = 1.0 / torch.clamp(target_var[idx] + source_var, min=1e-14)
+            iv_mean = torch.where(source_mask, iv, 0.0).sum() / n_valid
+            w = w * torch.sqrt(iv / torch.clamp(iv_mean, min=1e-30))[:, None]
         a = a * w
         l = l * w[:, 0]
         ata = a.T @ a
@@ -83,6 +107,7 @@ def point_to_plane_icp(target: torch.Tensor, target_normals: torch.Tensor,
         x = torch.linalg.solve(ata + eye6, atl)
         t_delta = params_to_matrix_torch(x)
         src = src @ t_delta[:3, :3].T + t_delta[:3, 3]
+        src_n = src_n @ t_delta[:3, :3].T
         trans = t_delta @ trans
         prev_mse, mse = mse, torch.where(source_mask, dist * dist,
                                          0.0).sum() / n_valid

@@ -6,15 +6,23 @@ grid + SOR) and segment both clouds — on one shared grid each (the unified
 path), or, for clouds the unified path declines, SOR then segmentation
 (the staged path) — reduce to the target centroid, run the Piecewise-ICP
 core, de-reduce the transform, optionally re-roll hard pairs (acceptance
-guard), write the reports.  Every entry point runs on ``device``, the card
-(``"cuda"``) unless the caller names another; without a visible GPU that
-default raises.
+guard), write the reports and, with ``isVisual``, the colored views.
+Every entry point runs on ``device``, the card (``"cuda"``) unless the
+caller names another; without a visible GPU that default raises.
+
+Two environment variables reach this path, as in the JAX package:
+``PWICP_NO_UNIFIED`` (any value) sends every cloud through the staged
+path, and ``PWICP_PROFILE_DIR`` names a directory that receives a
+``torch.profiler`` trace (Chrome trace JSON) of each ``register_pair``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import os
 import pathlib
+import time
 from typing import Optional
 
 import numpy as np
@@ -23,6 +31,7 @@ import torch
 from ..config import PiecewiseICPConfig
 from ..io import formats, read_pcd, write_pcd
 from ..utils.errors import PwICPError
+from ..utils import viz
 from ..utils.logging import PhaseTimer, gphase, log
 
 from ..device import resolve_device
@@ -31,7 +40,7 @@ from ..ops.preprocess import (estimate_resolution, preprocess_cloud,
 from ..ops.transform import (apply_transform_np, matrix_to_angles,
                              matrix_to_params_gon, params_to_matrix,
                              translation_matrix)
-from .piecewise_icp import PairResult, check_slice, piecewise_icp
+from .piecewise_icp import PairResult, piecewise_icp
 from .segmentation import PatchSet, build_patches
 from .segmentation_device import preprocess_segment_device
 
@@ -82,8 +91,12 @@ def _prepare_cloud(points: np.ndarray, cfg: PiecewiseICPConfig,
     path).  Returns (kept points [input frame and order], PatchSet [input
     frame]), or (kept points, None) when the unified path declines the
     cloud (fewer than 4,096 points after voxelisation, an extreme extent,
-    too many unresolved SOR queries): the staged ``preprocess_cloud`` then
-    runs and the caller segments the kept points itself."""
+    too many unresolved SOR queries) or ``PWICP_NO_UNIFIED`` is set: the
+    staged ``preprocess_cloud`` then runs and the caller segments the kept
+    points itself."""
+    if os.environ.get("PWICP_NO_UNIFIED"):
+        return preprocess_cloud(points, res, cfg.sor_neighbors, sor_mult,
+                                device), None
     with gphase("prep.voxel"):
         down = voxel_downsample(points, res)
     seed_origin = None
@@ -157,6 +170,27 @@ def _params6(t: np.ndarray) -> np.ndarray:
     return np.concatenate([matrix_to_angles(t), t[:3, 3]])
 
 
+@contextlib.contextmanager
+def _profile_trace(profile_dir: Optional[str], dev: torch.device):
+    """Trace the block with ``torch.profiler`` into ``profile_dir`` (one
+    Chrome trace JSON a block); nothing when ``profile_dir`` is empty."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        yield
+    os.makedirs(profile_dir, exist_ok=True)
+    path = os.path.join(profile_dir, f"register_pair_{os.getpid()}_"
+                        f"{time.time_ns()}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    log.info("profiler trace written to %s", path)
+
+
 def register_pair(points1: Optional[np.ndarray],
                   points2: Optional[np.ndarray],
                   cfg: Optional[PiecewiseICPConfig] = None,
@@ -172,10 +206,19 @@ def register_pair(points1: Optional[np.ndarray],
     Voxel + SOR preprocessing and segmentation -> centroid reduction to
     the PC1 centroid -> Piecewise-ICP core -> T_final = S^-1 T S, with the
     optional warm start (``initial_transform``) and the acceptance guard.
+    With ``PWICP_PROFILE_DIR`` set, the call is traced into that directory.
     """
-    cfg = cfg or PiecewiseICPConfig()
-    check_slice(cfg)
     dev = resolve_device(device)
+    with _profile_trace(os.environ.get("PWICP_PROFILE_DIR"), dev):
+        return _register_pair(points1, points2, cfg or PiecewiseICPConfig(),
+                              sor_mult, target_state, source_state,
+                              lattice_offset, initial_transform, dev)
+
+
+def _register_pair(points1, points2, cfg: PiecewiseICPConfig, sor_mult,
+                   target_state, source_state, lattice_offset,
+                   initial_transform, dev: torch.device
+                   ) -> RegistrationOutput:
     timer = PhaseTimer()
     mult = sor_mult if sor_mult is not None else cfg.sor_std_mult_pair
 
@@ -319,28 +362,51 @@ def write_pair_report(out_prefix: "str | pathlib.Path",
         write_pcd(prefix + "RegisteredSourceCloud.pcd", reg)
 
 
+def write_visualizations(out_prefix: "str | pathlib.Path",
+                         result: RegistrationOutput) -> None:
+    """The reference's PCLVisualizer views as colored PCDs: the patches of
+    both clouds and the stable / unstable split of the source."""
+    core = result.core
+    if core.patches2 is None:
+        return
+    prefix = str(out_prefix)
+    viz.export_colored_patches(prefix + "Patches1_colored.pcd",
+                               core.patches1.points, core.patches1.labels)
+    viz.export_colored_patches(prefix + "Patches2_colored.pcd",
+                               core.patches2.points, core.patches2.labels)
+    if core.stable_point_mask is not None:
+        viz.export_stable_unstable(prefix + "StableUnstable2.pcd",
+                                   core.patches2.points,
+                                   core.stable_point_mask)
+
+
 def piecewise_icp_pair_call(confile: str, outfile: str,
                             device: "str | torch.device" = "cuda",
                             **overrides) -> bool:
     """Equivalent of the reference C ABI entry
-    ``PiecewiseICP_pair_call(confile, outfile)``, on ``device``."""
+    ``PiecewiseICP_pair_call(confile, outfile)``, on ``device``.  Returns
+    False where the configuration or either cloud cannot be read."""
     try:
         cfg = PiecewiseICPConfig.from_reference_file(confile, **overrides)
     except (OSError, ValueError) as e:
         log.error("cannot read configuration file: %s", e)
         return False
-    if cfg.visual:
-        raise NotImplementedError(
-            "isVisual exports are not ported yet (ROADMAP: viz)")
     try:
         pts1 = read_pcd(cfg.path1)
         pts2 = read_pcd(cfg.path2)
-    except (OSError, ValueError, PwICPError) as e:
+    except Exception as e:  # any unreadable cloud is a failed call
         log.error("cannot load point clouds: %s", e)
         return False
     if len(pts1) < 1 or len(pts2) < 1:
         return False
     result = register_pair(pts1, pts2, cfg, device=device)
     write_pair_report(outfile, result, source_points=pts2)
+    if cfg.visual:
+        write_visualizations(outfile, result)
+        # the post-registration view of the original clouds
+        reg = apply_transform_np(pts2.astype(np.float64),
+                                 result.trans_mat).astype(np.float32)
+        viz.export_three_clouds(str(outfile) + "ThreeClouds.pcd",
+                                pts1, pts2, reg)
     log.info("transformation results saved to %s", outfile)
     return True

@@ -3,11 +3,23 @@
 
 One flat point array plus an int label array stands for the ragged
 per-patch point lists; every per-patch statistic is a segment reduction
-over it (``index_add_`` / ``scatter_reduce``).  Ids < 0 are dropped.
+over it.  Ids < 0 are dropped.
+
+Float sums run in an order fixed by the input alone: the rows are sorted
+by segment (stably, so each segment keeps its rows in index order) and
+each segment's contiguous run is reduced by ``segment_reduce``, which
+takes no atomics.  On the CPU that adds one row after another, the order
+of the CPU's ``index_add_`` (and of the JAX package's ``segment_sum`` on
+the CPU), so the bits there are those of a scatter-add.  A float
+``index_add_`` on CUDA adds by atomics in whatever order the threads
+arrive: two runs of one input then differ in the last bits, and so does
+every patch statistic built on them.  Integer sums and the max/min
+reductions do not depend on the order.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -21,11 +33,22 @@ def _ids(segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 def segment_sum(data: torch.Tensor, segment_ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
-    """Sum ``data`` rows per segment; ids < 0 are dropped."""
-    out = torch.zeros((num_segments + 1,) + tuple(data.shape[1:]),
-                      dtype=data.dtype, device=data.device)
-    out.index_add_(0, _ids(segment_ids, num_segments), data)
-    return out[:num_segments]
+    """Sum ``data`` rows per segment; ids < 0 are dropped.  Float sums
+    take an order fixed by the input (the same bits in every run)."""
+    ids = _ids(segment_ids, num_segments)
+    tail = tuple(data.shape[1:])
+    if not data.is_floating_point():
+        out = torch.zeros((num_segments + 1,) + tail, dtype=data.dtype,
+                          device=data.device)
+        out.index_add_(0, ids, data)
+        return out[:num_segments]
+    lengths = torch.zeros(num_segments + 1, dtype=torch.int64,
+                          device=data.device)
+    lengths.index_add_(0, ids, torch.ones_like(ids))
+    order = torch.argsort(ids, stable=True)
+    out = torch.segment_reduce(data[order].reshape(-1, math.prod(tail)),
+                               "sum", lengths=lengths, axis=0, unsafe=True)
+    return out.reshape((num_segments + 1,) + tail)[:num_segments]
 
 
 def segment_count(segment_ids: torch.Tensor, num_segments: int,

@@ -215,13 +215,21 @@ def test_cli_4d_reference_semantics(monkeypatch, tmp_path):
 
 
 def test_cli_4d_symmetric_icp_out_of_slice(series, tmp_path):
+    """A 3-epoch campaign with ``--icp-variant symmetric`` through the
+    ``4d`` command line writes every table within the truth bounds."""
     _, scans, _ = series
+    out = tmp_path / "out"
     conf = tmp_path / "config_4d.txt"
-    small_test_config(path1=str(scans), path2=str(tmp_path / "out")
-                      ).to_reference_file(conf)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cli_main(["4d", "--config", str(conf), "--epochs", "3",
-                  "--icp-variant", "symmetric", "--device", "cpu"])
+    small_test_config(path1=str(scans), path2=str(out) + os.sep,
+                      guard_enabled=False).to_reference_file(conf)
+    assert cli_main(["4d", "--config", str(conf), "--epochs", "3",
+                     "--mode", "-1", "--kalman", "--icp-variant",
+                     "symmetric", "--device", "cpu"]) == 0
+    for name in OUTPUTS:
+        assert (out / name).exists(), name
+    errors = formats.read_abs_errors(out / "TransPara_AbsError.txt")
+    assert errors.shape == (2, 6)
+    assert errors[:, :3].max() < 200.0 and errors[:, 3:].max() < 5.0
 
 
 @pytest.mark.parametrize("fn", [four_d.adaptive_pair_sequence, four_d.run_4d,

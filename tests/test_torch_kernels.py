@@ -410,3 +410,50 @@ def test_wrapper_rejects_bad_operands(grid, cuda):
     with pytest.raises(ValueError):
         seg_cuda.propagate_rounds(grid, nrm, t2, qm, seeds, 0.1,
                                   max_rounds=-1)
+
+
+def test_segment_sums_same_bits_in_two_runs(cuda):
+    """The patch statistics' float segment sums add in a fixed order: at
+    the smoke epoch's size (142,884 points, ~2,300 patches) two runs give
+    the same bits, and the sums agree with the CPU's."""
+    from piecewise_icp_torch.ops import segment_ops as seg
+
+    rng = np.random.default_rng(5)
+    n, p = 142884, 2300
+    pts = terrain_cloud(rng, n_side=378).astype(np.float32)
+    ids = rng.integers(-1, p, size=n)
+    x = torch.from_numpy(pts).to(cuda)
+    i = torch.from_numpy(ids).to(cuda)
+    runs = [(seg.segment_sum(x, i, p), seg.segment_cov3(x, i, p))
+            for _ in range(2)]
+    (s0, (c0, m0, n0)), (s1, (c1, m1, n1)) = runs
+    assert bool((s0 == s1).all()) and bool((c0 == c1).all())
+    assert bool((m0 == m1).all()) and bool((n0 == n1).all())
+    s_cpu = seg.segment_sum(torch.from_numpy(pts), torch.from_numpy(ids), p)
+    torch.testing.assert_close(s0.cpu(), s_cpu, rtol=1e-6, atol=1e-4)
+
+
+def test_patch_set_and_pair_same_bits_in_two_runs(cuda):
+    """A PatchSet of the unified path and a whole registration, twice on
+    the card: every field and the transform and VCM bit for bit."""
+    from piecewise_icp_torch.config import PiecewiseICPConfig
+    from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.models.segmentation_device import \
+        preprocess_segment_device
+    from piecewise_icp_torch.ops.preprocess import voxel_downsample
+    from piecewise_icp_torch.utils.synth import make_pair
+
+    c1, c2, _ = make_pair(np.random.default_rng(0),
+                          [0.002, -0.0015, 0.0025, 0.004, -0.006, 0.005],
+                          n_side=200, extent=1.0)
+    cfg = PiecewiseICPConfig()
+    down = voxel_downsample(c1, cfg.res1)
+    sets = [preprocess_segment_device(
+        down, cfg.res1, cfg.sor_neighbors, cfg.sor_std_mult_pair,
+        cfg.svsize1, cfg.knn_normals, cfg, device=cuda)[0].to_numpy()
+        for _ in range(2)]
+    for f, v in sets[0].items():
+        assert v.tobytes() == sets[1][f].tobytes(), f
+    a, b = (register_pair(c1, c2, cfg, device=cuda) for _ in range(2))
+    assert a.trans_mat.tobytes() == b.trans_mat.tobytes()
+    assert a.vcm.tobytes() == b.vcm.tobytes()

@@ -93,7 +93,7 @@ def test_register_pair_matches_jax_device_branch(pair):
     assert got.vcm.shape == (6, 6) and (np.diag(got.vcm) > 0).all()
 
 
-@pytest.mark.parametrize("entry", ["call", "cli"])
+@pytest.mark.parametrize("entry", ["call", "cli", "cli_symmetric"])
 def test_pair_call_writes_report(pair, tmp_path, entry):
     c1, c2, t_true = pair
     write_pcd(tmp_path / "Epoch_000.pcd", c1)
@@ -106,8 +106,10 @@ def test_pair_call_writes_report(pair, tmp_path, entry):
     if entry == "call":
         assert piecewise_icp_pair_call(str(conf), prefix, device="cpu")
     else:
+        extra = ["--icp-variant", "symmetric"] if entry == "cli_symmetric" \
+            else []
         assert cli_main(["pair", "--config", str(conf), "--out", prefix,
-                         "--device", "cpu"]) == 0
+                         "--device", "cpu", *extra]) == 0
     rep = formats.read_trans_matrix_report(prefix + "TransMatrix.txt")
     assert (tmp_path / "PairReg_RegisteredSourceCloud.pcd").exists()
     disp = truth_residual(rep["trans_mat"], t_true, c2)
@@ -115,14 +117,24 @@ def test_pair_call_writes_report(pair, tmp_path, entry):
     assert (np.diag(rep["vcm"]) > 0).all()
 
 
-def test_out_of_slice_paths_raise(pair):
-    c1, c2, _ = pair
-    for over in (dict(icp_variant="symmetric"),
-                 dict(icp_weighting="inverse_variance"),
-                 dict(change_screen=True)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            register_pair(c1, c2, config_from_jax(small_test_config(**over)),
-                          device="cpu")
+@pytest.mark.parametrize("over", [dict(icp_variant="symmetric"),
+                                  dict(icp_weighting="inverse_variance"),
+                                  dict(change_screen=True)],
+                         ids=["symmetric", "inverse_variance",
+                              "change_screen"])
+def test_out_of_slice_paths_raise(pair, over):
+    """The configuration paths beyond the reference objective run and agree
+    with the JAX package's device branch: the symmetric objective, the
+    inverse-variance weights, and the change screen (which the default
+    refine supersedes in both packages)."""
+    c1, c2, t_true = pair
+    cfg = small_test_config(guard_enabled=False, **over)
+    ref = jax_device_branch(c1, c2, cfg)
+    got = register_pair(c1, c2, config_from_jax(cfg), device="cpu")
+    assert corner_gap(got.trans_mat, ref, c2) < 5e-4
+    for t in (got.trans_mat, ref):
+        disp = truth_residual(t, t_true, c2)
+        assert disp.mean() < 2e-3 and disp.max() < 5e-3
 
 
 def test_auto_resolution_and_dtinit_match_jax(rng):
