@@ -1416,6 +1416,328 @@ def capi_phase(seed: int) -> None:
     require(mean < 2.0 and mx < 5.0, "C ABI: outside the truth bounds")
 
 
+# the sharded phase's misaligned pair: a wider terrain pair (409,600 points
+# an epoch at the smoke pair's spacing) whose source is raised 3 cm, under
+# DTinit but beyond the stage-1 grid's h (0.02 m): on each of up to four
+# shards more stable queries are unresolved than the rescue budget covers,
+# and the rescued ones leave the percentile's index outside the resolved
+# block, so the per-shard K5 rescue and the exact percentile through the
+# gather both run
+MIS_N_SIDE, MIS_EXTENT = 640, 3.2
+MISALIGN_M = 0.03
+SHARD_EPOCHS = 3
+# the JAX package's mesh tolerances (tests/test_parallel.py:122-138)
+SHARD_MGON, SHARD_MM, SHARD_VCM_RTOL = 0.5, 0.05, 5e-2
+FOREIGN = ("jax", "jaxlib", "piecewise_icp_tpu")
+
+
+def _foreign_modules() -> list:
+    return sorted(m for m in sys.modules if m.split(".")[0] in FOREIGN)
+
+
+def _counting_writes() -> dict:
+    """Count, in this process, each call of the writers of the report, the
+    tables and the pair files (a rank's count of its writes)."""
+    from piecewise_icp_torch.io import formats
+
+    calls: dict = {}
+    for mod, names in ((formats, ("write_trans_matrix_report",
+                                  "write_trans_matrices", "write_abs_errors",
+                                  "write_reg_pairs")), (np, ("savez",))):
+        for name in names:
+            fn = getattr(mod, name)
+
+            def counted(*a, _fn=fn, _name=name, **k):
+                calls[_name] = calls.get(_name, 0) + 1
+                return _fn(*a, **k)
+            setattr(mod, name, counted)
+    return calls
+
+
+def _pair_report(res, timer_records) -> dict:
+    return dict(trans_mat=res.trans_mat, vcm=res.vcm,
+                iterations=res.core.iterations, dt=res.core.dt_series,
+                exact=sum(r["phase"] == "core.percentile_exact"
+                          for r in timer_records),
+                rescued=[r["queries"] for r in timer_records
+                         if r["phase"] == "core.stage1_rescue"])
+
+
+def _sharded_rank(group, t_launch, c1, c2, mis, conf_4d, reps):
+    """One rank of the sharded phase: the smoke pair (cold, counted; then
+    ``reps`` warm, timed, each with the collectives it made), the
+    misaligned pair, and the campaign; every rank's report comes back
+    through rank 0."""
+    import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.ops import _cuda
+    from piecewise_icp_torch.utils.logging import GLOBAL_TIMER
+
+    started_s = time.time() - t_launch
+    cfg = pwt.PiecewiseICPConfig()
+    dev = group.device
+
+    def pair(cloud1, cloud2):
+        GLOBAL_TIMER.records.clear()
+        res = register_pair(cloud1, cloud2, cfg, device=dev, group=group)
+        torch.cuda.synchronize()
+        return _pair_report(res, GLOBAL_TIMER.records)
+
+    _cuda.reset_counts()
+    first = pair(c1, c2)
+    out = dict(rank=group.rank, device=str(dev), started_s=started_s,
+               launches=dict(_cuda.LAUNCHES),
+               plain_on_cuda=dict(_cuda.PLAIN_ON_CUDA), pair=first)
+    warm, differ = [], 0
+    for _ in range(reps):
+        group.barrier()
+        calls, sent = collections.Counter(group.calls), \
+            collections.Counter(group.bytes)
+        t0 = time.perf_counter()
+        again = pair(c1, c2)
+        warm.append(time.perf_counter() - t0)
+        differ += bit_diff(again["trans_mat"], first["trans_mat"]) \
+            + bit_diff(again["vcm"], first["vcm"])
+    out.update(warm=warm, warm_bits_differ=differ,
+               pair_calls=dict(collections.Counter(group.calls) - calls),
+               pair_bytes=dict(collections.Counter(group.bytes) - sent))
+    out["mis"] = pair(*mis)
+    writes = _counting_writes()
+    out["campaign_ok"] = pwt.piecewise_icp_4d_call(
+        conf_4d, 0, SHARD_EPOCHS, -1, device=dev, group=group,
+        kalman_enabled=True)
+    out.update(writes=writes, foreign=_foreign_modules())
+    return group.gather_object(out)
+
+
+def _repeat_rank(group, t_launch, c1, c2):
+    """One rank of a second launch: the smoke pair once."""
+    import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.models.pairwise import register_pair
+
+    started_s = time.time() - t_launch
+    res = register_pair(c1, c2, pwt.PiecewiseICPConfig(), device=group.device,
+                        group=group)
+    torch.cuda.synchronize()
+    return group.gather_object(dict(started_s=started_s,
+                                    trans_mat=res.trans_mat, vcm=res.vcm,
+                                    foreign=_foreign_modules()))
+
+
+def _within(label: str, got: dict, want: dict,
+            same_iterations: bool = True) -> None:
+    """The mesh tolerances: the same outer iterations (where asked), the
+    transform within 0.5 mgon and 0.05 mm, the VCM within rtol 5e-2."""
+    from piecewise_icp_torch.ops.transform import matrix_to_angles
+
+    d_mgon = np.abs(np.array(matrix_to_angles(got["trans_mat"]))
+                    - np.array(matrix_to_angles(want["trans_mat"]))).max() \
+        * 1000.0 * 200.0 / np.pi
+    d_mm = 1e3 * np.abs(got["trans_mat"][:3, 3]
+                        - want["trans_mat"][:3, 3]).max()
+    vcm_rel = float(np.max(np.abs(got["vcm"] - want["vcm"])
+                           / np.maximum(np.abs(want["vcm"]), 1e-300)))
+    log(f"sharded, {label}: outer iterations {got['iterations']} (single "
+        f"device {want['iterations']}); against the single device "
+        f"{d_mgon:.6f} mgon, {d_mm:.7f} mm, VCM relative {vcm_rel:.3g} "
+        f"(bounds {SHARD_MGON} mgon, {SHARD_MM} mm, {SHARD_VCM_RTOL})")
+    require(got["iterations"] == want["iterations"] or not same_iterations,
+            f"sharded, {label}: other outer iterations than one device")
+    require(d_mgon < SHARD_MGON and d_mm < SHARD_MM,
+            f"sharded, {label}: transform outside the mesh tolerance")
+    np.testing.assert_allclose(got["vcm"], want["vcm"], rtol=SHARD_VCM_RTOL,
+                               atol=1e-14)
+
+
+def sharded_phase(seed: int) -> None:
+    """The staged loop point-sharded over a process group (``parallel``):
+    NCCL over min(count, 4) ranks where two cards or more are visible,
+    else gloo with 2 ranks on ``cuda:0``.  The smoke pair on the ranks
+    against one device in this process (mesh tolerances, truth bounds,
+    every rank's transform bit-equal, K1-K4 launched in every rank, no
+    plain version on a CUDA tensor, no JAX module), twice (bit-equal); a
+    misaligned pair (the per-shard rescue and the exact percentile through
+    the gather); a 3-epoch campaign (every table written once, chained
+    errors against one device); warm times, the collectives of a pair and
+    their bytes, the ranks' start-up."""
+    import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.io import formats, write_pcd
+    from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.ops.transform import translation_matrix
+    from piecewise_icp_torch.parallel import launch
+    from piecewise_icp_torch.utils.logging import GLOBAL_TIMER
+    from piecewise_icp_torch.utils.synth import make_pair, make_series, \
+        write_ground_truth
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    count = torch.cuda.device_count()
+    if count >= 2:
+        backend, nproc = "nccl", min(count, 4)
+        where = f"one card a rank, cuda:0..{nproc - 1}"
+    else:
+        backend, nproc = "gloo", 2
+        where = ("both on cuda:0; NCCL not run: torch.cuda.device_count() "
+                 "is 1, and NCCL takes one card a rank")
+    log(f"sharded: torch.cuda.device_count() {count}; backend {backend}, "
+        f"{nproc} ranks ({where})")
+    label = (f"{nproc} {backend} ranks sharing one card (not a scaling "
+             f"number)" if backend == "gloo" else f"{nproc} nccl ranks")
+
+    c1, c2, t_true = smoke_pair(seed)
+    m1, m2, t_mis = make_pair(np.random.default_rng(seed + 5), PARAMS,
+                              n_side=MIS_N_SIDE, extent=MIS_EXTENT)
+    mis = (m1, m2 + np.float32([0.0, 0.0, MISALIGN_M]))
+    t_mis = translation_matrix(np.array([0.0, 0.0, MISALIGN_M])) @ t_mis
+    cfg = pwt.PiecewiseICPConfig()
+
+    def one_device(cloud1, cloud2):
+        GLOBAL_TIMER.records.clear()
+        res = register_pair(cloud1, cloud2, cfg)
+        torch.cuda.synchronize()
+        return _pair_report(res, GLOBAL_TIMER.records)
+
+    single = one_device(c1, c2)
+    warm1 = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        one_device(c1, c2)
+        warm1.append(time.perf_counter() - t0)
+    single_mis = one_device(*mis)
+
+    epochs, gt = make_series(np.random.default_rng(seed + 2), SHARD_EPOCHS,
+                             trend=TREND_4D, n_side=N_SIDE, extent=EXTENT)
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        scans = tmp / "scans"
+        scans.mkdir()
+        for k, e in enumerate(epochs):
+            write_pcd(scans / f"Epoch_{k + 1:03d}.pcd", e)
+        write_ground_truth(tmp / "defined_transformations.txt", gt)
+        confs = {}
+        for name in ("one", "ranks"):
+            pwt.PiecewiseICPConfig(
+                path1=str(scans), path2=str(tmp / name) + "/",
+                set_dtinit=False).to_reference_file(tmp / f"{name}.txt")
+            confs[name] = str(tmp / f"{name}.txt")
+        require(pwt.piecewise_icp_4d_call(confs["one"], 0, SHARD_EPOCHS, -1,
+                                          kalman_enabled=True),
+                "sharded: the one-device campaign returned False")
+
+        t_launch = time.time()
+        t0 = time.perf_counter()
+        reports = launch(_sharded_rank, nproc, t_launch, c1, c2, mis,
+                         confs["ranks"], 3, device="cuda", backend=backend,
+                         timeout=900)
+        launch_a_s = time.perf_counter() - t0
+        errors = {name: formats.read_abs_errors(
+            tmp / name / "TransPara_AbsError.txt") for name in confs}
+        written = sorted(p.name for p in (tmp / "ranks").iterdir())
+    t_launch = time.time()
+    t0 = time.perf_counter()
+    again = launch(_repeat_rank, nproc, t_launch, c1, c2, device="cuda",
+                   backend=backend, timeout=600)
+    launch_b_s = time.perf_counter() - t0
+
+    root = reports[0]
+    for r in reports + again:
+        require(not r["foreign"], f"sharded: a rank imported {r['foreign']}")
+    for r in reports:
+        require(not r["plain_on_cuda"], f"sharded: rank {r['rank']} ran plain "
+                f"versions on CUDA tensors: {r['plain_on_cuda']}")
+        for name in PAIR_KERNELS:
+            require(r["launches"].get(name, 0) > 0, f"sharded: kernel {name} "
+                    f"was not launched in rank {r['rank']}")
+        log(f"sharded: rank {r['rank']} on {r['device']}: launches of the "
+            f"cold pair {r['launches']}; plain versions on CUDA: none; no "
+            f"module of jax, jaxlib or piecewise_icp_tpu loaded")
+    bits = [bit_diff(r["pair"]["trans_mat"], root["pair"]["trans_mat"])
+            for r in reports] + [
+        bit_diff(r[k], root["pair"][k]) for k in ("trans_mat", "vcm")
+        for r in again]
+    log(f"sharded: elements whose bits differ from rank 0's first transform:"
+        f" {bits[:nproc]} (ranks, first launch), {bits[nproc:2 * nproc]} "
+        f"(ranks, second launch; the VCM {bits[2 * nproc:]}); the 3 warm "
+        f"repeats of rank 0 differ in {root['warm_bits_differ']}")
+    require(not any(bits) and not root["warm_bits_differ"],
+            "sharded: the ranks or two launches gave other bits")
+    _within("smoke pair", root["pair"], single)
+    mean, mx = truth_mm(root["pair"]["trans_mat"], t_true, c2)
+    log(f"sharded, smoke pair: residual vs truth mean {mean:.4f} mm, max "
+        f"{mx:.4f} mm (bounds 2 mm / 5 mm)")
+    require(mean < 2.0 and mx < 5.0, "sharded: outside the truth bounds")
+
+    rescued = {r["rank"]: r["mis"]["rescued"] for r in reports}
+    log(f"sharded, misaligned pair ({len(m1)} points an epoch, source "
+        f"raised {MISALIGN_M} m): "
+        f"queries rescued by K5 a stage-1 call, by rank {rescued} (budget "
+        f"{N_RESCUE} a shard); exact-percentile fallbacks (through the "
+        f"gather) {root['mis']['exact']}, on one device "
+        f"{single_mis['exact']} (rescues {single_mis['rescued']})")
+    require(any(N_RESCUE in q for q in rescued.values()),
+            "sharded: no shard had more unresolved queries than the budget")
+    require(root["mis"]["exact"] > 0,
+            "sharded: the exact percentile did not run through the gather")
+    # the first DT is the exact percentile's; past the first iteration,
+    # which removes the offset, the stage-2 decay may divide box changes
+    # at float32 noise, so the iterations are reported, not held
+    log(f"sharded, misaligned pair: DT series {root['mis']['dt'][:3]}, on "
+        f"one device {single_mis['dt'][:3]}")
+    np.testing.assert_allclose(root["mis"]["dt"][:2], single_mis["dt"][:2],
+                               rtol=1e-5)
+    _within("misaligned pair", root["mis"], single_mis,
+            same_iterations=False)
+    mean, mx = truth_mm(root["mis"]["trans_mat"], t_mis, mis[1])
+    log(f"sharded, misaligned pair: residual vs truth mean {mean:.4f} mm, "
+        f"max {mx:.4f} mm")
+    require(mean < 2.0 and mx < 5.0,
+            "sharded: misaligned pair outside the truth bounds")
+
+    require(all(r["campaign_ok"] for r in reports),
+            "sharded: the campaign returned False on a rank")
+    writes = [r["writes"] for r in reports]
+    want = dict(write_trans_matrix_report=SHARD_EPOCHS - 1,
+                write_trans_matrices=3, write_abs_errors=2,
+                write_reg_pairs=1, savez=SHARD_EPOCHS - 1)
+    log(f"sharded, {SHARD_EPOCHS}-epoch campaign: writes by rank {writes}; "
+        f"files {written}")
+    require(writes[0] == want and not any(writes[1:]),
+            f"sharded: the campaign's files were not each written once by "
+            f"rank 0 ({want})")
+    d_e = np.abs(errors["ranks"] - errors["one"])
+    e_r = errors["ranks"]
+    log(f"sharded, campaign: chained errors against the one-device campaign:"
+        f" {d_e[:, :3].max():.6f} mgon, {d_e[:, 3:].max():.7f} mm (bounds "
+        f"{SHARD_MGON} / {SHARD_MM}); max error {e_r[:, :3].max():.4f} mgon,"
+        f" {e_r[:, 3:].max():.5f} mm")
+    require(d_e[:, :3].max() < SHARD_MGON and d_e[:, 3:].max() < SHARD_MM,
+            "sharded: campaign outside the mesh tolerance")
+
+    calls, sent = root["pair_calls"], root["pair_bytes"]
+    log(f"sharded: collectives of one warm pair on rank 0: calls {calls}; "
+        f"bytes of their results {sent} ({sum(sent.values())} in all); outer "
+        f"iterations {root['pair']['iterations']}")
+    starts = [r["started_s"] for r in reports + again]
+
+    def secs(xs):
+        return ", ".join(f"{x:.3f}" for x in xs)
+
+    log(f"sharded: warm pair, median of 3: one device "
+        f"{statistics.median(warm1):.3f} s ({secs(warm1)}); {label} "
+        f"{statistics.median(root['warm']):.3f} s ({secs(root['warm'])}); "
+        f"{smi}")
+    log(f"sharded: rank start-up (launch to the rank's first line: spawn, "
+        f"imports, process group) {secs(starts)} s; launches "
+        f"{launch_a_s:.2f} s (pairs and campaign) and {launch_b_s:.2f} s "
+        f"(one pair); phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+
+
 def four_d_phase(seed: int, k5_ms: float) -> dict:
     """The 4D campaign through the user entry point: 20 epochs of 142,884
     points, adaptive planning, auto DT-init, Kalman smoothing."""
@@ -1756,7 +2078,7 @@ def kernel_times(variant: str, seed: int) -> dict:
 ONLY_PHASES = {"reproducible": reproducible_phase, "variants": variants_phase,
                "change_screen": change_screen_phase,
                "exports_hooks": exports_hooks_phase, "capi": capi_phase,
-               "pair": pair_phase}
+               "pair": pair_phase, "sharded": sharded_phase}
 
 
 def main(argv=None) -> int:
@@ -1832,10 +2154,9 @@ def main(argv=None) -> int:
     change_screen_phase(args.seed)
     exports_hooks_phase(args.seed)
     capi_phase(args.seed)
+    sharded_phase(args.seed)
     launches = four_d_phase(args.seed, kern["nn1_brute"]["ms"])
-    foreign = sorted(m for m in sys.modules
-                     if m.split(".")[0] in ("jax", "jaxlib",
-                                            "piecewise_icp_tpu"))
+    foreign = _foreign_modules()
     require(not foreign, f"JAX or the JAX package was imported: {foreign}")
 
     record = {"kernels": [

@@ -3,9 +3,14 @@
     python -m piecewise_icp_torch pair --config conf.txt --out results/PairReg/
     python -m piecewise_icp_torch 4d --config conf.txt --epochs 20 --mode -1
     python -m piecewise_icp_torch 4d ... --kalman --shards 4 --shard 1
+    python -m piecewise_icp_torch pair ... --mesh-devices 2
 
 The two entry points of the reference (Registration.h:36,49), on
 ``--device`` (``cuda`` by default, ``cpu`` for the plain versions).
+``--mesh-devices N`` launches N ranks that each run the entry point
+point-sharded over one process group: NCCL on ``cuda`` (one card a rank;
+it raises where fewer cards are visible), gloo on ``cpu``.  The exit code
+is rank 0's.
 """
 
 from __future__ import annotations
@@ -42,6 +47,9 @@ def main(argv=None) -> int:
     for p in (p_pair, p_4d):
         p.add_argument("--device", default="cuda",
                        help="cuda (default) or cpu")
+        p.add_argument("--mesh-devices", type=int, default=0,
+                       help="run every registration point-sharded over N "
+                            "ranks (0 = one process)")
         p.add_argument("--reference-semantics", action="store_true",
                        help="disable the beyond-reference accuracy "
                             "features (change screen, acceptance guard, "
@@ -59,21 +67,23 @@ def main(argv=None) -> int:
         overrides["icp_variant"] = args.icp_variant
 
     if args.cmd == "pair":
-        from .models.pairwise import piecewise_icp_pair_call
-        ok = piecewise_icp_pair_call(args.config, args.out,
-                                     device=args.device, **overrides)
+        from .models.pairwise import piecewise_icp_pair_call as entry
+        call_args = (args.config, args.out)
     else:
-        from .models.four_d import piecewise_icp_4d_call
+        from .models.four_d import piecewise_icp_4d_call as entry
         if args.kalman:
             overrides["kalman_enabled"] = True
-        ok = piecewise_icp_4d_call(args.config, args.start_epoch,
-                                   args.epochs, args.mode, args.overlap_thd,
-                                   ground_truth=args.ground_truth,
-                                   shard_index=args.shard,
-                                   shard_count=args.shards,
-                                   resume=args.resume,
-                                   finalize=not args.no_finalize,
-                                   device=args.device, **overrides)
+        call_args = (args.config, args.start_epoch, args.epochs, args.mode,
+                     args.overlap_thd)
+        overrides.update(ground_truth=args.ground_truth,
+                         shard_index=args.shard, shard_count=args.shards,
+                         resume=args.resume, finalize=not args.no_finalize)
+    if args.mesh_devices:
+        from .parallel import launch, run_on_rank
+        ok = launch(run_on_rank, args.mesh_devices, entry, *call_args,
+                    device=args.device, **overrides)
+    else:
+        ok = entry(*call_args, device=args.device, **overrides)
     return 0 if ok else 1
 
 

@@ -138,9 +138,10 @@ def piecewise_icp_4d_call(confile: str, start_epoch: int, epoch_num: int,
                           shard_index: int = 0, shard_count: int = 1,
                           resume: bool = False, finalize: bool = True,
                           device: "str | torch.device" = "cuda",
-                          **overrides) -> bool:
+                          group=None, **overrides) -> bool:
     """Equivalent of the reference C ABI entry ``PiecewiseICP_4D_call``
-    (Registration.h:36), on ``device``."""
+    (Registration.h:36), on ``device`` (with ``group``, every pair
+    point-sharded over its ranks)."""
     try:
         cfg = PiecewiseICPConfig.from_reference_file(confile, **overrides)
     except (OSError, ValueError) as e:
@@ -149,7 +150,7 @@ def piecewise_icp_4d_call(confile: str, start_epoch: int, epoch_num: int,
     return run_4d(cfg, start_epoch, epoch_num, pair_mode, overlap_thd,
                   ground_truth=ground_truth, shard_index=shard_index,
                   shard_count=shard_count, resume=resume, finalize=finalize,
-                  device=device)
+                  device=device, group=group)
 
 
 def _write_param_table(path: str, ts_list, mats, vcms) -> None:
@@ -165,7 +166,7 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
            ground_truth: Optional[str] = None,
            shard_index: int = 0, shard_count: int = 1,
            resume: bool = False, finalize: bool = True,
-           device: "str | torch.device" = "cuda") -> bool:
+           device: "str | torch.device" = "cuda", group=None) -> bool:
     """Run the 4D campaign on ``device``, optionally as one shard of an
     epoch fleet.
 
@@ -175,11 +176,25 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
     Each finished pair is written to ``pairs/pair_NNNN.npz``; a later
     ``resume=True`` run, or whichever shard sees the full set, reads them
     and finalises (tables, chaining, Kalman smoothing, ground-truth errors,
-    ``phase_timings.jsonl``).
+    ``phase_timings.jsonl``).  Epoch shards compose with ``group``: each
+    shard may run its pairs over a group of ranks.
+
+    With ``group`` (a :class:`~..parallel.ShardGroup`) every rank plans
+    and prepares every epoch itself (no collective: neither does the
+    prefetch thread, since two threads on one communicator deadlock) and
+    runs each pair point-sharded; only rank 0 writes files, each write
+    followed by a barrier.
     """
     from ..ops import _cuda
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if group is None \
+        else group.local_device(device)
+    writer = group is None or group.is_root
+
+    def written() -> None:
+        if group is not None:
+            group.barrier()
+
     if dev.type == "cuda":
         _cuda.lib()      # build and load once, before the prefetch thread
     timer = PhaseTimer()
@@ -205,7 +220,9 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
                 reg_pairs, _ = adaptive_pair_sequence(
                     files[:epoch_num], start_epoch, cfg.dt_init,
                     overlap_thd, device=dev)
-            formats.write_reg_pairs(pair_file, reg_pairs)
+            if writer:
+                formats.write_reg_pairs(pair_file, reg_pairs)
+            written()
 
     # ---- per-pair registrations (Registration.cpp:89-187) ----
     mode_name = _mode_name(pair_mode)
@@ -292,12 +309,13 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
                         None, None, cfg, sor_mult=cfg.sor_std_mult_4d,
                         target_state=epoch_states[ref_idx],
                         source_state=epoch_states[i + 1],
-                        initial_transform=t0_init, device=dev)
+                        initial_transform=t0_init, device=dev, group=group)
                 tm, vcm, was_failed = result.trans_mat, result.vcm, False
                 prev_direct_tm = tm
                 prefix = os.path.join(out_folder,
                                       f"{times[i + 1]}_{mode_name}")
-                write_pair_report(prefix, result)
+                if writer:
+                    write_pair_report(prefix, result)
             except PwICPError as e:
                 log.error("step %d failed (%s); skipping to next", step, e)
                 failed.append(step)
@@ -306,8 +324,10 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
                 tm, vcm, was_failed = np.eye(4), np.eye(6) * 1e6, True
             tm_list.append(tm)
             vcm_list.append(vcm)
-            np.savez(pair_npz, tm=tm, vcm=vcm, failed=was_failed,
-                     ts=times[i + 1])
+            if writer:
+                np.savez(pair_npz, tm=tm, vcm=vcm, failed=was_failed,
+                         ts=times[i + 1])
+            written()
         for idx, fut in pending.items():    # prepared, never consumed
             try:
                 fut.result()
@@ -323,7 +343,20 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
         return len(failed) == 0
     if not finalize:
         return len(failed) == 0
+    if writer:
+        _finalize(cfg, out_folder, start_epoch, pair_mode, reg_pairs,
+                  ts_list, tm_list, vcm_list, ground_truth, timer)
+    written()
+    if failed:
+        log.warning("failed pairs: %s", failed)
+    return len(failed) == 0
 
+
+def _finalize(cfg: PiecewiseICPConfig, out_folder: str, start_epoch: int,
+              pair_mode: int, reg_pairs, ts_list, tm_list, vcm_list,
+              ground_truth: Optional[str], timer: PhaseTimer) -> None:
+    """Write the tables, chain to the reference epoch, smooth, compare
+    with the ground truth and dump the phase timings."""
     formats.write_trans_matrices(os.path.join(out_folder,
                                               "TransMatrices.txt"),
                                  ts_list, tm_list, vcm_list)
@@ -354,7 +387,7 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
             ts_list, smooth.trans_mats, smooth.covariances)
 
     # ---- accuracy against ground truth (Registration.cpp:205-211) ----
-    gt_path = _find_ground_truth(input_folder, ground_truth)
+    gt_path = _find_ground_truth(cfg.path1, ground_truth)
     if gt_path:
         _, gt_mats = formats.read_ground_truth_transforms(gt_path)
         gt_slice = gt_mats[start_epoch + 1: start_epoch + 1 + len(chained_t)]
@@ -372,6 +405,3 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
                      np.array2string(errors_s.mean(axis=0), precision=3))
 
     timer.dump(os.path.join(out_folder, "phase_timings.jsonl"))
-    if failed:
-        log.warning("failed pairs: %s", failed)
-    return len(failed) == 0

@@ -63,8 +63,8 @@ def point_to_plane_icp(target: torch.Tensor, target_normals: torch.Tensor,
                        source_normals: torch.Tensor | None = None,
                        symmetric: bool = False,
                        target_var: torch.Tensor | None = None,
-                       source_var: torch.Tensor | None = None
-                       ) -> Tuple[torch.Tensor, int]:
+                       source_var: torch.Tensor | None = None,
+                       group=None) -> Tuple[torch.Tensor, int]:
     """Iterative point-to-plane alignment of ``source`` onto ``target``.
 
     With ``symmetric=True`` (and ``source_normals``, rotated with the
@@ -75,11 +75,21 @@ def point_to_plane_icp(target: torch.Tensor, target_normals: torch.Tensor,
     With ``target_var`` and ``source_var`` every row is weighted by
     sqrt(iv / mean iv), iv = 1 / max(var_t[idx] + var_s, 1e-14), the mean
     over the masked sources.  The defaults are the reference objective
-    with uniform weights.  Returns (4x4 transform f32, iterations
+    with uniform weights.
+
+    With ``group`` (a :class:`~..parallel.ShardGroup`) the source rows are
+    this rank's shard: each inner iteration sums ``ata``, ``atl``, the MSE
+    sum and the row count over the ranks in ONE all-reduce (and the
+    inverse-variance normaliser and its count in one more) before the
+    solve, which every rank then runs on the same bits, so every rank
+    takes the same branch.  Returns (4x4 transform f32, iterations
     executed)."""
+    def reduce(*ts):
+        return ts if group is None else group.sum_many(*ts)
+
     f32 = dict(dtype=target.dtype, device=target.device)
     eye6 = 1e-12 * torch.eye(6, **f32)
-    n_valid = torch.clamp(source_mask.sum(), min=1).to(target.dtype)
+    n_src = source_mask.sum().to(target.dtype)
     weighted = target_var is not None and source_var is not None
     trans = torch.eye(4, **f32)
     src = source
@@ -98,19 +108,21 @@ def point_to_plane_icp(target: torch.Tensor, target_normals: torch.Tensor,
         w = source_mask.to(target.dtype)[:, None]
         if weighted:
             iv = 1.0 / torch.clamp(target_var[idx] + source_var, min=1e-14)
-            iv_mean = torch.where(source_mask, iv, 0.0).sum() / n_valid
+            iv_sum, n_w = reduce(torch.where(source_mask, iv, 0.0).sum(),
+                                 n_src)
+            iv_mean = iv_sum / torch.clamp(n_w, min=1)
             w = w * torch.sqrt(iv / torch.clamp(iv_mean, min=1e-30))[:, None]
         a = a * w
         l = l * w[:, 0]
-        ata = a.T @ a
-        atl = a.T @ l
+        ata, atl, sq_sum, n_valid = reduce(
+            a.T @ a, a.T @ l, torch.where(source_mask, dist * dist, 0.0).sum(),
+            n_src)
         x = torch.linalg.solve(ata + eye6, atl)
         t_delta = params_to_matrix_torch(x)
         src = src @ t_delta[:3, :3].T + t_delta[:3, 3]
         src_n = src_n @ t_delta[:3, :3].T
         trans = t_delta @ trans
-        prev_mse, mse = mse, torch.where(source_mask, dist * dist,
-                                         0.0).sum() / n_valid
+        prev_mse, mse = mse, sq_sum / torch.clamp(n_valid, min=1)
         tr_sqr = (t_delta[:3, 3] ** 2).sum()
         cos_angle = (torch.trace(t_delta[:3, :3]) - 1.0) / 2.0
         delta_ok = (tr_sqr <= transformation_eps) & (cos_angle >= 0.99999)

@@ -10,6 +10,11 @@ guard), write the reports and, with ``isVisual``, the colored views.
 Every entry point runs on ``device``, the card (``"cuda"``) unless the
 caller names another; without a visible GPU that default raises.
 
+With ``group`` (a :class:`~..parallel.ShardGroup`) every rank prepares
+its own clouds (no collective) and runs the core point-sharded; only rank
+0 writes the report, the ``isVisual`` views and the profiler trace, and a
+barrier follows the writes.
+
 Two environment variables reach this path, as in the JAX package:
 ``PWICP_NO_UNIFIED`` (any value) sends every cloud through the staged
 path, and ``PWICP_PROFILE_DIR`` names a directory that receives a
@@ -199,25 +204,29 @@ def register_pair(points1: Optional[np.ndarray],
                   source_state: Optional[TargetState] = None,
                   lattice_offset: np.ndarray | None = None,
                   initial_transform: np.ndarray | None = None,
-                  device: "str | torch.device" = "cuda"
+                  device: "str | torch.device" = "cuda", group=None
                   ) -> RegistrationOutput:
     """Register cloud2 onto cloud1 (raw input clouds, original frame).
 
     Voxel + SOR preprocessing and segmentation -> centroid reduction to
     the PC1 centroid -> Piecewise-ICP core -> T_final = S^-1 T S, with the
     optional warm start (``initial_transform``) and the acceptance guard.
-    With ``PWICP_PROFILE_DIR`` set, the call is traced into that directory.
+    With ``PWICP_PROFILE_DIR`` set, the call is traced into that directory
+    (by rank 0 of a ``group``).
     """
-    dev = resolve_device(device)
-    with _profile_trace(os.environ.get("PWICP_PROFILE_DIR"), dev):
+    dev = resolve_device(device) if group is None \
+        else group.local_device(device)
+    trace_dir = os.environ.get("PWICP_PROFILE_DIR") \
+        if group is None or group.is_root else None
+    with _profile_trace(trace_dir, dev):
         return _register_pair(points1, points2, cfg or PiecewiseICPConfig(),
                               sor_mult, target_state, source_state,
-                              lattice_offset, initial_transform, dev)
+                              lattice_offset, initial_transform, dev, group)
 
 
 def _register_pair(points1, points2, cfg: PiecewiseICPConfig, sor_mult,
                    target_state, source_state, lattice_offset,
-                   initial_transform, dev: torch.device
+                   initial_transform, dev: torch.device, group
                    ) -> RegistrationOutput:
     timer = PhaseTimer()
     mult = sor_mult if sor_mult is not None else cfg.sor_std_mult_pair
@@ -264,7 +273,7 @@ def _register_pair(points1, points2, cfg: PiecewiseICPConfig, sor_mult,
             c = piecewise_icp(tstate.reduced_points, red2, res1, res2, cfg,
                               patches1=tstate.patches, patches2=p2,
                               lattice_shift=tstate.shift,
-                              lattice_offset=off, device=dev)
+                              lattice_offset=off, device=dev, group=group)
         s = translation_matrix(tstate.shift)
         s_inv = translation_matrix(-tstate.shift)
         return c, s_inv @ c.trans_mat @ s
@@ -382,10 +391,11 @@ def write_visualizations(out_prefix: "str | pathlib.Path",
 
 def piecewise_icp_pair_call(confile: str, outfile: str,
                             device: "str | torch.device" = "cuda",
-                            **overrides) -> bool:
+                            group=None, **overrides) -> bool:
     """Equivalent of the reference C ABI entry
-    ``PiecewiseICP_pair_call(confile, outfile)``, on ``device``.  Returns
-    False where the configuration or either cloud cannot be read."""
+    ``PiecewiseICP_pair_call(confile, outfile)``, on ``device`` (with
+    ``group``, point-sharded over its ranks).  Returns False where the
+    configuration or either cloud cannot be read."""
     try:
         cfg = PiecewiseICPConfig.from_reference_file(confile, **overrides)
     except (OSError, ValueError) as e:
@@ -399,14 +409,17 @@ def piecewise_icp_pair_call(confile: str, outfile: str,
         return False
     if len(pts1) < 1 or len(pts2) < 1:
         return False
-    result = register_pair(pts1, pts2, cfg, device=device)
-    write_pair_report(outfile, result, source_points=pts2)
-    if cfg.visual:
-        write_visualizations(outfile, result)
-        # the post-registration view of the original clouds
-        reg = apply_transform_np(pts2.astype(np.float64),
-                                 result.trans_mat).astype(np.float32)
-        viz.export_three_clouds(str(outfile) + "ThreeClouds.pcd",
-                                pts1, pts2, reg)
-    log.info("transformation results saved to %s", outfile)
+    result = register_pair(pts1, pts2, cfg, device=device, group=group)
+    if group is None or group.is_root:
+        write_pair_report(outfile, result, source_points=pts2)
+        if cfg.visual:
+            write_visualizations(outfile, result)
+            # the post-registration view of the original clouds
+            reg = apply_transform_np(pts2.astype(np.float64),
+                                     result.trans_mat).astype(np.float32)
+            viz.export_three_clouds(str(outfile) + "ThreeClouds.pcd",
+                                    pts1, pts2, reg)
+        log.info("transformation results saved to %s", outfile)
+    if group is not None:
+        group.barrier()
     return True

@@ -38,6 +38,7 @@ from ..ops.nn_cuda import nn1_brute, range_nn1_counted
 from ..ops.preprocess import percentile_c2c
 from ..ops.transform import (apply_transform, bounding_box_corner_change,
                              masked_aabb, matrix_to_angles, params_to_matrix)
+from ..parallel.distributed import gather_rows
 from .icp import _masked_nn, compute_vcm, point_to_plane_icp
 from .segmentation import PatchSet, build_patches
 
@@ -81,11 +82,14 @@ def _classify_and_align(ct1, n1, std_ct1, ct1_mask, ct2, bp2, std_bp2,
                         ct2_mask, curr_dt, dt_min, max_lod, sv_sum,
                         icp_max_iterations, icp_trans_eps, icp_fitness_eps,
                         n2=None, icp_variant: str = "reference",
-                        icp_weighting: str = "uniform"):
+                        icp_weighting: str = "uniform", group=None):
     """Classification + inner ICP (Registration.cpp:735-877) with the
     ``icp_variant`` objective (``n2`` the source normals) and, for
     ``icp_weighting="inverse_variance"``, the rows weighted by the
-    variances std_ct1**2 and std_bp2**2.
+    variances std_ct1**2 and std_bp2**2.  Classification runs on the
+    replicated patch arrays; with ``group`` the inner ICP takes this
+    rank's contiguous slice of the source rows (P2 padded with masked rows
+    to a multiple of the ranks).
     Returns (T_icp 4x4, stable [P2], LoD_min, n_stable, icp_iters)."""
     p2 = ct2.shape[0]
     ct_idx, ct_dist = _masked_nn(ct2, ct2_mask, ct1, ct1_mask)
@@ -109,28 +113,40 @@ def _classify_and_align(ct1, n1, std_ct1, ct1_mask, ct2, bp2, std_bp2,
     n_stable = stable.sum()
 
     weighted = icp_weighting == "inverse_variance"
+    src, src_mask, src_n = ct2, stable, n2
+    src_var = std_bp2 * std_bp2 if weighted else None
+    if group is not None:
+        src, src_mask = group.shard(ct2), group.shard(stable)
+        src_n = None if n2 is None else group.shard(n2)
+        src_var = None if src_var is None else group.shard(src_var)
     t_icp, icp_iters = point_to_plane_icp(
-        ct1, n1, ct1_mask, ct2, stable,
+        ct1, n1, ct1_mask, src, src_mask,
         max_iterations=icp_max_iterations,
         transformation_eps=icp_trans_eps, fitness_eps=icp_fitness_eps,
-        source_normals=n2, symmetric=icp_variant == "symmetric",
+        source_normals=src_n, symmetric=icp_variant == "symmetric",
         target_var=std_ct1 * std_ct1 if weighted else None,
-        source_var=std_bp2 * std_bp2 if weighted else None)
+        source_var=src_var, group=group)
     return t_icp, stable, lod_min, n_stable, icp_iters
 
 
-def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile):
+def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile,
+                       group=None):
     """The stage-1 percentile of stable source->target NN distances.
 
     K1 resolves every stable query whose nearest target lies within the
     grid's h and counts the rest; where that count (the one host read
     here) is 0 nothing else runs.  Otherwise the unresolved queries (the
     first ``_PCT_RESCUE`` by index at most) are re-measured by the brute
-    1-NN (K5).  Returns (d75, exact) as device scalars and n_unresolved."""
+    1-NN (K5).  With ``group`` the queries are this rank's shard and the
+    budget applies per shard; then ONE gather of the distances and ONE
+    packed sum of the counts (after the branch on this rank's count, so
+    every rank meets them).  Returns (d75, exact, n_unresolved) as device
+    scalars."""
     _, d, resolved, strict, n_unresolved = range_nn1_counted(
         cloud2, pt_stable, grid)
     n_bad = int(n_unresolved)
     u = min(_PCT_RESCUE, n_bad)
+    ok = resolved
     if n_bad:
         # masked queries count as resolved: these are stable ones
         ok = resolved.clone()
@@ -142,8 +158,16 @@ def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile):
         d_ok = torch.where(ok, d, torch.inf)
     else:
         d_ok = d
-    stable_n = pt_stable.sum()
-    idx = torch.clamp((stable_n.to(torch.float32)
+    # stable, resolved (or rescued) stable, not strict, not all rescued,
+    # unresolved
+    counts = torch.cat([
+        torch.stack([pt_stable.sum(), (ok & pt_stable).sum()]),
+        torch.tensor([int(not strict), int(n_bad > u), n_bad],
+                     device=d.device)])
+    if group is not None:
+        d_ok = group.gather(d_ok)
+        (counts,) = group.sum_many(counts)
+    idx = torch.clamp((counts[0].to(torch.float32)
                        * torch.tensor(percentile, dtype=torch.float32,
                                       device=d.device)).to(torch.int64),
                       0, d_ok.shape[0] - 1)
@@ -151,20 +175,21 @@ def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile):
     # exact when every unresolved query was rescued, or under the
     # order-statistic argument (strict: unresolved => true distance > h,
     # and the percentile index lands in the resolved block)
-    if n_bad <= u:
-        exact = torch.tensor(True, device=d.device)
-    else:
-        exact = torch.as_tensor(strict, device=d.device) \
-            & (idx < (ok & pt_stable).sum())
-    return d_grid, exact, n_bad
+    exact = (counts[3] == 0) | ((counts[2] == 0) & (idx < counts[1]))
+    return d_grid, exact, counts[4]
 
 
 def _iteration_step(ct1, n1, std_ct1, ct1_mask, ct2, n2, bp2, std_bp2,
                     ct2_mask, cloud2, cloud2_mask, labels2, grid,
                     curr_dt, dt_min, max_lod, sv_sum, bb_leaf, percentile,
-                    need_percentile, cfg, icp_variant: str = "reference"):
+                    need_percentile, cfg, icp_variant: str = "reference",
+                    group=None):
     """One complete Piecewise-ICP iteration on the device, its inner ICP
     with the ``icp_variant`` objective and ``cfg.icp_weighting``.
+
+    With ``group`` (a :class:`~..parallel.ShardGroup`) ``cloud2``, its
+    mask and labels are this rank's shard and the patch arrays and grid
+    are replicated; the stats come out the same on every rank.
 
     Returns (stats [24] f64 on the host — T_icp (16), LoD_min, n_stable,
     icp_iters, max_bb, d75, d75_exact, n_pt_stable, n_unresolved — then
@@ -178,10 +203,12 @@ def _iteration_step(ct1, n1, std_ct1, ct1_mask, ct2, n2, bp2, std_bp2,
         scal["curr_dt"], scal["dt_min"], scal["max_lod"], scal["sv_sum"],
         cfg.icp_max_iterations, cfg.icp_transformation_eps,
         cfg.icp_fitness_eps, n2=n2, icp_variant=icp_variant,
-        icp_weighting=cfg.icp_weighting)
+        icp_weighting=cfg.icp_weighting, group=group)
 
     # the reference's octree box: cubic, power-of-two side (leaf 2*Res2)
     bb_min, bb_max = masked_aabb(cloud2, cloud2_mask)
+    if group is not None:
+        bb_min, bb_max = group.min(bb_min), group.max(bb_max)
     extent = (bb_max - bb_min).max()
     leaf = torch.clamp(scal["bb_leaf"], min=1e-9)
     side = leaf * torch.exp2(torch.ceil(torch.log2(
@@ -193,10 +220,14 @@ def _iteration_step(ct1, n1, std_ct1, ct1_mask, ct2, n2, bp2, std_bp2,
 
     if need_percentile:
         d75, d75_exact, n_bad = _stage1_percentile(cloud2, pt_stable, grid,
-                                                   percentile)
+                                                   percentile, group)
     else:
         d75 = torch.tensor(torch.inf, **f32)
-        d75_exact, n_bad = torch.tensor(True, device=ct1.device), 0
+        d75_exact = torch.tensor(True, device=ct1.device)
+        n_bad = torch.tensor(0, device=ct1.device)
+    n_pt_stable = pt_stable.sum()
+    if group is not None:
+        n_pt_stable = group.sum(n_pt_stable)
 
     new_cloud2 = apply_transform(cloud2, t_icp)
     new_ct2 = apply_transform(ct2, t_icp)
@@ -209,9 +240,8 @@ def _iteration_step(ct1, n1, std_ct1, ct1_mask, ct2, n2, bp2, std_bp2,
                                   device=ct1.device),
                      max_bb.to(torch.float64), d75.to(torch.float64),
                      d75_exact.to(torch.float64),
-                     pt_stable.sum().to(torch.float64),
-                     torch.tensor(float(n_bad), dtype=torch.float64,
-                                  device=ct1.device)])])
+                     n_pt_stable.to(torch.float64),
+                     n_bad.to(torch.float64)])])
     (stats_h,) = fetch(stats)
     return (stats_h, stable, pt_stable, new_cloud2, new_ct2, new_bp2,
             new_n2)
@@ -401,11 +431,23 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
                   patches2: Optional[PatchSet] = None,
                   lattice_shift: np.ndarray | None = None,
                   lattice_offset: np.ndarray | None = None,
-                  device: "str | torch.device" = "cuda") -> PairResult:
+                  device: "str | torch.device" = "cuda",
+                  group=None) -> PairResult:
     """Register preprocessed ``cloud2`` onto ``cloud1`` (both centroid-
-    reduced host float32 arrays) on ``device``."""
+    reduced host float32 arrays) on ``device``.
+
+    With ``group`` (a :class:`~..parallel.ShardGroup` whose ranks all call
+    this with the same inputs, ``device`` being this rank's) the staged
+    loop runs point-sharded: the patch rows are padded with masked rows
+    and the source cloud, in target-cell order, with masked points to a
+    multiple of the ranks; the cloud is split into contiguous shards, the
+    patch arrays and the grid are replicated and checked bit-equal across
+    the ranks once.  DT-init, the refine, the change screen and the VCM
+    run replicated; the exact-percentile fallback and the final stable
+    mask gather the shards first."""
     cfg = cfg or PiecewiseICPConfig()
-    dev = resolve_device(device)
+    dev = resolve_device(device) if group is None \
+        else group.local_device(device)
 
     if cfg.set_dtinit:
         curr_dt = float(cfg.dt_init)
@@ -446,11 +488,15 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
     cloud1_index = build_grid(patches1.points, h=max(4.0 * res1, 1e-6))
     grid1 = CellGrid.from_index(cloud1_index, dev)
 
-    ct2 = up(patches2.centroids)
-    n2 = up(patches2.normals)
-    bp2 = up(patches2.boundary.reshape(-1, 3))
-    std_bp2 = up(patches2.std_bp)
-    ct2_mask = torch.ones(p2, dtype=torch.bool, device=dev)
+    def rows(t, value=0):
+        """Rows padded to a multiple of the ranks (masked ones)."""
+        return t if group is None else group.pad_rows(t, value)
+
+    ct2 = rows(up(patches2.centroids))
+    n2 = rows(up(patches2.normals))
+    bp2 = rows(up(patches2.boundary)).reshape(-1, 3)
+    std_bp2 = rows(up(patches2.std_bp))
+    ct2_mask = rows(torch.ones(p2, dtype=torch.bool, device=dev), False)
     # the moving source cloud in TARGET-grid cell order (spatially coherent
     # queries); the stable mask is permuted back at the end
     c2_perm = _cell_order(patches2.points, cloud1_index)
@@ -459,6 +505,16 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
     cloud2_mask = torch.ones(n2pts, dtype=torch.bool, device=dev)
     labels2 = patches2.labels[c2_perm]
     labels2_t = up(labels2, torch.int64)
+    if group is not None:
+        group.check_replicated(
+            ct1, n1, std_ct1, ct2, n2, bp2, std_bp2, cloud2_t, labels2_t,
+            grid1.points, grid1.cell_starts, torch.tensor(
+                [curr_dt, res1, res2, sv1, sv2, p1, p2, n2pts, grid1.h,
+                 *grid1.origin, *grid1.dims], dtype=torch.float64,
+                device=dev))
+        cloud2_t = group.shard(rows(cloud2_t))
+        cloud2_mask = group.shard(rows(cloud2_mask, False))
+        labels2_t = group.shard(rows(labels2_t, -1))
 
     dt_min = float(cfg.dt_min)
     max_lod = dt_min * cfg.lod_max_ratio
@@ -492,7 +548,8 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
                 # the symmetric objective is a refinement objective: its
                 # bisector residual holds only once DT is small, so stage 1
                 # runs the reference objective
-                icp_variant=cfg.icp_variant if to_stage2 else "reference")
+                icp_variant=cfg.icp_variant if to_stage2 else "reference",
+                group=group)
 
         t_icp = stats[:16].reshape(4, 4)
         (lod_min, n_stable, icp_iters, max_bb, d75, d75_exact,
@@ -521,8 +578,9 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
             if not bool(d75_exact):
                 with gphase("core.percentile_exact"):
                     d75 = percentile_c2c(
-                        grid1.points, cloud2_t, cfg.dtinit_percentile,
-                        s_mask=pt_stable)
+                        grid1.points, gather_rows(cloud2_t, group),
+                        cfg.dtinit_percentile,
+                        s_mask=gather_rows(pt_stable, group))
             else:
                 d75 = float(d75)
             if curr_dt > d75:
@@ -631,7 +689,7 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
                          1e3 * float(np.linalg.norm(t_corr[:3, 3])))
 
     if pt_stable_h is None:
-        (pt_stable_h,) = fetch(pt_stable)
+        (pt_stable_h,) = fetch(gather_rows(pt_stable, group))
     stable_mask = np.empty(n2pts, dtype=bool)
     stable_mask[c2_perm] = pt_stable_h[:n2pts]
     return PairResult(trans_mat=trans_mat, vcm=vcm, dt_series=dt_series,

@@ -389,6 +389,42 @@ def test_stage1_without_unresolved_skips_k5(grid, cuda):
     assert float(d75) == float(want)
 
 
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.contiguous().reshape(-1).view(torch.uint8),
+        b.contiguous().reshape(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("nproc", [2, 3])
+def test_range_nn1_and_nn1_brute_on_a_shard(grid, cuda, nproc):
+    """K1 and K5 on one rank's shard of a point-sharded cloud (a view with
+    a storage offset; the cloud padded with masked rows to a multiple of
+    the ranks, so the last shard ends in padding) give the bits of a
+    contiguous copy of the shard: flags, count, ids and distances."""
+    from piecewise_icp_torch.parallel import ShardGroup
+
+    rng = np.random.default_rng(11)
+    n = grid.n - 1                      # a multiple of neither 2 nor 3
+    q = grid.points[:n] + torch.from_numpy(
+        rng.normal(scale=RES, size=(n, 3)).astype(np.float32)).to(cuda)
+    live = torch.from_numpy(rng.uniform(size=n) < 0.8).to(cuda)
+    _cuda.reset_counts()
+    for rank in range(nproc):
+        g = ShardGroup(rank, nproc, cuda, "gloo")
+        qs, ms = g.shard(g.pad_rows(q)), g.shard(g.pad_rows(live, False))
+        rows = qs.shape[0]
+        assert qs.storage_offset() == 3 * rank * rows
+        on_view = nn_cuda.range_nn1_counted(qs, ms, grid)
+        on_copy = nn_cuda.range_nn1_counted(qs.clone(), ms.clone(), grid)
+        for i in (0, 1, 2, 4):
+            assert _same_bits(on_view[i], on_copy[i])
+        for a, b in zip(nn_cuda.nn1_brute(qs, grid.points, q_mask=ms),
+                        nn_cuda.nn1_brute(qs.clone(), grid.points,
+                                          q_mask=ms.clone())):
+            assert _same_bits(a, b)
+    assert not _cuda.PLAIN_ON_CUDA
+
+
 def test_wrapper_rejects_bad_operands(grid, cuda):
     qm = torch.ones(grid.n, dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):

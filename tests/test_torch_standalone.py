@@ -1,6 +1,7 @@
-"""PyTorch port, stand-alone: the package, every module under it, its CLI
-and ``chip_smoke.py`` import nothing of JAX and nothing of the JAX package
-(``piecewise_icp_tpu``), and a registration runs with both blocked."""
+"""PyTorch port, stand-alone: the package, every module under it (its
+``parallel`` package included), its CLI and ``chip_smoke.py`` import
+nothing of JAX and nothing of the JAX package (``piecewise_icp_tpu``), and
+a registration runs with both blocked."""
 
 import ast
 import pathlib
@@ -49,6 +50,7 @@ def test_port_runs_with_the_jax_package_blocked():
             pwt.__path__, pwt.__name__ + ".")]
         assert "piecewise_icp_torch.__main__" in names, names
         assert "piecewise_icp_torch.io.formats" in names, names
+        assert "piecewise_icp_torch.parallel.distributed" in names, names
         for name in names:
             importlib.import_module(name)
         from piecewise_icp_torch.utils.synth import make_pair
