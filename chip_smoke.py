@@ -34,7 +34,14 @@ two entry points on the card:
    through ``piecewise_icp_torch.piecewise_icp_4d_call(...,
    device="cuda")`` in adaptive mode (the plan advances its target) with
    auto DT-init and Kalman smoothing, then its first 5 epochs twice (once
-   profiled), whose tables must be byte-equal,
+   profiled), whose tables must be byte-equal;
+5. the rockfall configurations (BASELINE 3 and 4) at the reference's scale
+   on the series of ``piecewise_icp_torch.utils.rockfall``: the pair of
+   epochs 1 and 2 (the staged path; its transform within 0.5 mm at the box
+   corners of the JAX package's, a constant here), the same pair with the
+   acceptance guard firing, and the 6-epoch Kalman campaign through
+   ``piecewise_icp_4d_call``; then K1-K5 against their plain versions at
+   that path's shapes,
 
 each checked against the known transforms, with the launch counts of the
 kernels read around each path.  Any failed check raises, as does a loaded
@@ -46,7 +53,7 @@ campaign, which runs all five kernels; times, bounds and errors of this
 run; the whole-loop launch of the label propagation has a row of its own).
 
 ``python3 chip_smoke.py --only PHASE [PHASE ...]`` builds the kernels and
-runs only the named phases of 2 and 3 (or the pair of 1), with no JSON
+runs only the named phases of 2, 3 and 5 (or the pair of 1), with no JSON
 record: the way to run one phase on another tree, such as a parent's.
 
 ``python3 chip_smoke.py --sweep VARIANT [VARIANT ...]`` runs none of the
@@ -72,6 +79,8 @@ import collections
 import dataclasses
 import hashlib
 import json
+import logging
+import os
 import pathlib
 import re
 import shutil
@@ -144,6 +153,30 @@ N_RESCUE = 49152
 # the staged SOR at full width: isolated points scattered above both epochs,
 # more than the rescue budget of the unified path (4,096), which declines
 N_SPARSE = 6000
+
+# BASELINE configurations 3 and 4: the rockfall series of
+# piecewise_icp_torch/utils/rockfall.py at the reference's scale (the
+# defaults of eval/rockfall_sim.py), registered with the reference's rockfall
+# configuration (res 0.3 m, SV 3 m, DTinit 0.1 m, DTmin 0.03 m)
+ROCKFALL_EPOCHS = 6
+ROCKFALL_EXTENT = (150.0, 100.0)
+ROCKFALL_RES = 0.3
+ROCKFALL_SEED = 7
+# the second pair's guard threshold, above the pair's stable ratio: the
+# acceptance guard fires
+ROCKFALL_GUARD_RATIO = 0.9
+# the JAX package's transform of that pair (configuration 3, epochs 1 and
+# 2), from its own register_pair with its TPU branch forced on the CPU;
+# printed, and held against these numbers, by
+#     python -m pytest tests/test_torch_rockfall.py -m slow -k full_scale -s
+JAX_ROCKFALL_PAIR = np.array([
+    [1.000000003718868, 8.994180545334548e-06,
+     -8.718929412113982e-05, 0.004937960722915191],
+    [-9.001476630847545e-06, 1.0000000043615298,
+     -8.367824148930049e-05, -0.0014367141997695398],
+    [8.718853958043741e-05, 8.367902684357334e-05,
+     1.0000000078575995, -0.004299780845478551],
+    [0.0, 0.0, 0.0, 1.0]])
 
 # the tables two runs of one campaign must write byte for byte
 REPRO_TABLES = ("TransMatrices_toRef.txt", "TransPara_AbsError.txt")
@@ -280,7 +313,8 @@ def smoke_epochs(seed: int):
             (c2.astype(np.float64) + shift).astype(np.float32))
 
 
-def propagation_inputs(grid, q_mask, normals, t2, rounds: int):
+def propagation_inputs(grid, q_mask, normals, t2, rounds: int,
+                       sv: float = SV):
     """K4's operands on ``grid`` as segmentation makes them: the seeds of
     the live points, the query rows, the metric's constants, and the seed
     state carried through ``rounds`` propagation rounds of the kernel.
@@ -291,11 +325,11 @@ def propagation_inputs(grid, q_mask, normals, t2, rounds: int):
     from piecewise_icp_torch.ops import seg_cuda
 
     live = np.flatnonzero(q_mask.cpu().numpy())
-    seeds = live[propagate_seeds(grid.points.cpu().numpy()[live], SV)]
+    seeds = live[propagate_seeds(grid.points.cpu().numpy()[live], sv)]
     seed_idx = torch.from_numpy(seeds.astype(np.int64)).to(grid.points.device)
     qall = torch.cat([grid.points, normals, t2[:, None],
                       torch.zeros_like(t2)[:, None]], dim=1).contiguous()
-    inv, h2 = float(0.4 / SV), float(grid.h) * float(grid.h)
+    inv, h2 = float(0.4 / sv), float(grid.h) * float(grid.h)
     state = seg_cuda.init_state(grid.points, normals, seed_idx)
     for _ in range(rounds):
         state, _ = seg_cuda._prop_round_kernel(grid, qall, q_mask, state, inv,
@@ -308,12 +342,161 @@ def propagation_inputs(grid, q_mask, normals, t2, rounds: int):
 # ---------------------------------------------------------------------------
 
 
+def fresh_grid(grid):
+    """A copy of ``grid`` without the plain versions' cached brute
+    neighbour lists, so that each timed plain call pays for its own."""
+    return dataclasses.replace(grid, _self_nbr=[])
+
+
+def self_join_facts(grid, where: str):
+    """(candidates of the self-join's windows, the grid's bytes), logged
+    with the grid's cells and widest window."""
+    n, n_cells = grid.n, grid.n_cells
+    cells = grid.cell_starts[:n_cells + 1].long()
+    widest = int(window_counts(grid).max())
+    log(f"{where}: {n} points, {grid.dims} = {n_cells} cells of "
+        f"{grid.h:.6f} m, {int((cells[1:] > cells[:-1]).sum())} occupied; "
+        f"the widest 27-cell window holds {widest} points")
+    return window_pairs(grid), 12 * n + 4 * (n_cells + 1), widest
+
+
+def knn_check(grid, where: str) -> dict:
+    """K2 (the SOR k-NN, k + 1 = 15) against its plain version on the
+    self-join of ``grid``: resolved flags, ids and distances of resolved
+    queries at tolerance 0; then both times and the bound."""
+    import torch
+
+    from piecewise_icp_torch.ops import nn_cuda
+
+    n, h, k2 = grid.n, grid.h, SOR_K + 1
+    all_q = torch.ones(n, dtype=torch.bool, device=grid.points.device)
+    ki, kd, kr = nn_cuda.knn_sorted(grid, all_q, k2)
+    pi_, pd2 = nn_cuda.knn_sorted_plain(fresh_grid(grid), all_q, k2)
+    pd = torch.sqrt(torch.clamp(pd2, min=0.0))
+    pr = torch.isfinite(pd[:, -1]) & (pd[:, -1] <= float(np.float32(h)))
+    require(bool(kr.any()), f"K2 ({where}): no query resolved")
+    require(bool((kr == pr).all()), f"K2 ({where}): resolved sets differ")
+    require(bool((ki[kr] == pi_[kr]).all()),
+            f"K2 ({where}): neighbour ids differ")
+    err = max_abs(kd[kr], pd[kr])
+    require(err == 0.0, f"K2 ({where}): distances differ by {err}")
+    # the self-join's candidates: every grid kernel meets them all
+    pairs, grid_bytes, widest = self_join_facts(grid, where)
+    # a distance (8) and its comparison with the k-th so far (1) for each
+    # candidate, then the order of the k kept (k log2 k comparisons a query)
+    res = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: nn_cuda._knn_sorted_kernel(grid, all_q, k2)),
+        plain_ms=time_ms(lambda: nn_cuda.knn_sorted_plain(
+            fresh_grid(grid), all_q, k2)),
+        **bound(grid_bytes + n + 8 * n * k2,
+                9 * pairs + n * k2 * int(np.ceil(np.log2(k2)))))
+    cap = _kernel_cap("pwicp_knn_cap")
+    log(f"K2 knn_sorted ({where}) k={k2} h={h:.6f}: {int(kr.sum())}/{n} "
+        f"resolved; ids and distances of resolved queries equal (tolerance "
+        f"0); {pairs} candidates in the windows ({pairs / n:.1f} a query); "
+        f"widest window {widest}, staged cap {cap}: walked branch "
+        f"{'ran' if widest > cap else 'not run'}; kernel {res['ms']:.3f} "
+        f"ms, plain (chunked brute within h) {res['plain_ms']:.3f} ms, "
+        f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
+    return res
+
+
+def _kernel_cap(name: str) -> int:
+    """A staged window's cap as the kernel library reports it."""
+    from piecewise_icp_torch.ops import _cuda
+
+    return int(getattr(_cuda.lib(), name)())
+
+
+def seg_prop_checks(grid, sv: float, where: str,
+                    determined_only: bool = False) -> dict:
+    """K3 (neighbourhood statistics, k = 45), one K4 round in both modes
+    and K4's whole loop against their plain versions on the self-join of
+    ``grid`` with supervoxel size ``sv``; times and bounds.
+    ``determined_only``: K3's normals are held where its moment tolerance
+    determines them (``stats_check``)."""
+    import torch
+
+    from piecewise_icp_torch.ops import seg_cuda
+
+    n, h = grid.n, grid.h
+    all_q = torch.ones(n, dtype=torch.bool, device=grid.points.device)
+    pairs, grid_bytes, widest = self_join_facts(grid, where)
+    results = {}
+    ks = seg_cuda._seg_stats_kernel(grid, all_q, KNN_NORMALS)
+    ps = seg_cuda.seg_stats_plain(fresh_grid(grid), all_q, KNN_NORMALS)
+    err, min_dot = stats_check(ks, ps, h, all_q, f"K3 ({where})",
+                               determined_only)
+    require(bool((seg_cuda._seg_stats_kernel(grid, all_q, KNN_NORMALS)
+                  == ks).all()), f"K3 ({where}): two runs gave different "
+            "bits")
+    t2k, nk = ks[:, 1], seg_cuda.normals_from_stats(ks)
+    results["seg_stats"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: seg_cuda._seg_stats_kernel(grid, all_q,
+                                                      KNN_NORMALS)),
+        plain_ms=time_ms(lambda: seg_cuda.seg_stats_plain(
+            fresh_grid(grid), all_q, KNN_NORMALS)),
+        # a distance (8), one comparison of the selection of the k-th
+        # radius and the test against t2 for each candidate; 10 sums and 6
+        # products for each neighbour kept (the counts of the output)
+        **bound(grid_bytes + n + 64 * n,
+                10 * pairs + 16 * float(ks[:, 0].sum())))
+    seg_cap, prop_cap = (_kernel_cap("pwicp_seg_cap"),
+                         _kernel_cap("pwicp_prop_cap"))
+    log(f"K3 seg_stats ({where}) k={KNN_NORMALS}: t2 and counts equal, "
+        f"moments within 1e-5 relative (largest difference {err:.3g}), "
+        f"normals |n.n'| >= 1-1e-5 (min {min_dot:.8f}), the same bits in "
+        f"two runs; widest window {widest}, staged cap {seg_cap}: walked "
+        f"branch {'ran' if widest > seg_cap else 'not run'}; kernel "
+        f"{results['seg_stats']['ms']:.3f} ms, plain (brute neighbours "
+        f"within h) {results['seg_stats']['plain_ms']:.3f} ms, bound "
+        f"{results['seg_stats']['bound_ms']:.4f} ms")
+
+    # K4: one propagation round on a partly propagated state, both modes
+    seed_idx, qall, inv, h2, state = propagation_inputs(grid, all_q, nk, t2k,
+                                                        3, sv)
+    err = 0.0
+    for adopt in (False, True):
+        sk, ck = seg_cuda._prop_round_kernel(grid, qall, all_q, state, inv,
+                                             h2, adopt)
+        sp, cp = seg_cuda.prop_round_plain(fresh_grid(grid), qall, all_q,
+                                           state, inv, h2, adopt)
+        require(bool((sk[:, 6] == sp[:, 6]).all()),
+                f"K4 ({where}, adopt={adopt}): labels differ")
+        require(int(ck) == int(cp), f"K4 ({where}, adopt={adopt}): change "
+                f"counts {int(ck)} != {int(cp)}")
+        err = max(err, float((sk - sp).abs().max()))
+    require(err == 0.0, f"K4 ({where}): state rows differ by {err}")
+    round_bytes = grid_bytes + 32 * n + n + 32 * n + 32 * n + 4
+    results["prop_round"] = dict(
+        max_abs_err=err,
+        ms=time_ms(lambda: seg_cuda._prop_round_kernel(
+            grid, qall, all_q, state, inv, h2, False)),
+        plain_ms=time_ms(lambda: seg_cuda.prop_round_plain(
+            fresh_grid(grid), qall, all_q, state, inv, h2, False)),
+        # the label test, a distance and its comparison for each
+        # candidate (the metric of the candidates kept is not counted)
+        **bound(round_bytes, 10 * pairs))
+    log(f"K4 prop_round ({where}): {len(seed_idx)} seeds (SV {sv} m), "
+        f"labels, state rows and change counts equal in both modes "
+        f"(tolerance 0); widest window {widest}, staged cap {prop_cap}: "
+        f"walked branch {'ran' if widest > prop_cap else 'not run'}; kernel "
+        f"{results['prop_round']['ms']:.3f} ms, plain (brute neighbours "
+        f"within h) {results['prop_round']['plain_ms']:.3f} ms, bound "
+        f"{results['prop_round']['bound_ms']:.4f} ms")
+    results["propagate"] = propagate_check(
+        grid, fresh_grid, nk, t2k, all_q, seed_idx, qall, inv, h2,
+        results["prop_round"], round_bytes, 10 * pairs, sv)
+    return results
+
+
 def kernel_phases(seed: int) -> dict:
     """Each kernel against its plain version at main-path shapes."""
     import torch
 
     from piecewise_icp_torch.models.segmentation_device import _seg_h
-    from piecewise_icp_torch.ops import nn_cuda, seg_cuda
     from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
     from piecewise_icp_torch.models.piecewise_icp import _cell_order
 
@@ -322,110 +505,13 @@ def kernel_phases(seed: int) -> dict:
     n = p1.shape[0]
     log(f"kernel phases: terrain epoch of {n} points (n_side={N_SIDE}, "
         f"extent={EXTENT} m, seed={seed})")
-    results = {}
-
-    def fresh(g: CellGrid) -> CellGrid:
-        # plain versions cache their brute neighbour lists on the grid;
-        # a fresh copy makes each timed plain call pay for its own
-        return dataclasses.replace(g, _self_nbr=[])
 
     # ---- self-join grid of segmentation / SOR (cell size h) ----
     h = _seg_h(KNN_NORMALS, RES)
-    index = build_grid(p1, h)
-    grid = CellGrid.from_index(index, dev)
-    all_q = torch.ones(n, dtype=torch.bool, device=dev)
-
-    # K2: SOR k-NN, k + 1 = 15
-    k2 = SOR_K + 1
-    ki, kd, kr = nn_cuda.knn_sorted(grid, all_q, k2)
-    pi_, pd2 = nn_cuda.knn_sorted_plain(fresh(grid), all_q, k2)
-    pd = torch.sqrt(torch.clamp(pd2, min=0.0))
-    pr = torch.isfinite(pd[:, -1]) & (pd[:, -1] <= float(np.float32(h)))
-    require(bool(kr.any()), "K2: no query resolved")
-    require(bool((kr == pr).all()), "K2: resolved sets differ")
-    require(bool((ki[kr] == pi_[kr]).all()), "K2: neighbour ids differ")
-    err = max_abs(kd[kr], pd[kr])
-    require(err == 0.0, f"K2: distances differ by {err}")
-    # the self-join's candidates: every grid kernel below meets them all
-    pairs = window_pairs(grid)
-    n_cells = grid.n_cells
-    cells = grid.cell_starts[:n_cells + 1].long()
-    log(f"self-join grid: {grid.dims} = {n_cells} cells of {h:.6f} m, "
-        f"{int((cells[1:] > cells[:-1]).sum())} occupied; the widest "
-        f"27-cell window holds {int(window_counts(grid).max())} points")
-    grid_bytes = 12 * n + 4 * (n_cells + 1)
-    # a distance (8) and its comparison with the k-th so far (1) for each
-    # candidate, then the order of the k kept (k log2 k comparisons a query)
-    results["knn_sorted"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: nn_cuda._knn_sorted_kernel(grid, all_q, k2)),
-        plain_ms=time_ms(lambda: nn_cuda.knn_sorted_plain(
-            fresh(grid), all_q, k2)),
-        **bound(grid_bytes + n + 8 * n * k2,
-                9 * pairs + n * k2 * int(np.ceil(np.log2(k2)))))
-    log(f"K2 knn_sorted k={k2} h={h:.6f}: {int(kr.sum())}/{n} resolved; "
-        f"ids and distances of resolved queries equal (tolerance 0); "
-        f"{pairs} candidates in the windows ({pairs / n:.1f} a query); "
-        f"kernel {results['knn_sorted']['ms']:.3f} ms, plain (chunked "
-        f"brute within h) {results['knn_sorted']['plain_ms']:.3f} ms")
-
-    # K3: neighbourhood statistics, k = 45
-    ks = seg_cuda._seg_stats_kernel(grid, all_q, KNN_NORMALS)
-    ps = seg_cuda.seg_stats_plain(fresh(grid), all_q, KNN_NORMALS)
-    err, min_dot = stats_check(ks, ps, h, all_q, "K3")
-    require(bool((seg_cuda._seg_stats_kernel(grid, all_q, KNN_NORMALS)
-                  == ks).all()), "K3: two runs gave different bits")
-    t2k, nk = ks[:, 1], seg_cuda.normals_from_stats(ks)
-    results["seg_stats"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: seg_cuda._seg_stats_kernel(grid, all_q,
-                                                      KNN_NORMALS)),
-        plain_ms=time_ms(lambda: seg_cuda.seg_stats_plain(
-            fresh(grid), all_q, KNN_NORMALS)),
-        # a distance (8), one comparison of the selection of the k-th
-        # radius and the test against t2 for each candidate; 10 sums and 6
-        # products for each neighbour kept (the counts of the output)
-        **bound(grid_bytes + n + 64 * n,
-                10 * pairs + 16 * float(ks[:, 0].sum())))
-    log(f"K3 seg_stats k={KNN_NORMALS}: t2 and counts equal, moments within "
-        f"1e-5 relative (largest difference {err:.3g}), normals |n.n'| >= "
-        f"1-1e-5 (min {min_dot:.8f}), the same bits in two runs; kernel {results['seg_stats']['ms']:.3f} ms, plain (brute "
-        f"neighbours within h) {results['seg_stats']['plain_ms']:.3f} ms")
-
-    # K4: one propagation round on a partly propagated state, both modes
-    seed_idx, qall, inv, h2, state = propagation_inputs(grid, all_q, nk, t2k,
-                                                        3)
-    err = 0.0
-    for adopt in (False, True):
-        sk, ck = seg_cuda._prop_round_kernel(grid, qall, all_q, state, inv,
-                                             h2, adopt)
-        sp, cp = seg_cuda.prop_round_plain(fresh(grid), qall, all_q, state,
-                                           inv, h2, adopt)
-        require(bool((sk[:, 6] == sp[:, 6]).all()),
-                f"K4 (adopt={adopt}): labels differ")
-        require(int(ck) == int(cp), f"K4 (adopt={adopt}): change counts "
-                f"{int(ck)} != {int(cp)}")
-        err = max(err, float((sk - sp).abs().max()))
-    require(err == 0.0, f"K4: state rows differ by {err}")
-    results["prop_round"] = dict(
-        max_abs_err=err,
-        ms=time_ms(lambda: seg_cuda._prop_round_kernel(
-            grid, qall, all_q, state, inv, h2, False)),
-        plain_ms=time_ms(lambda: seg_cuda.prop_round_plain(
-            fresh(grid), qall, all_q, state, inv, h2, False)),
-        # the label test, a distance and its comparison for each
-        # candidate (the metric of the candidates kept is not counted)
-        **bound(grid_bytes + 32 * n + n + 32 * n + 32 * n + 4,
-                10 * pairs))
-    log(f"K4 prop_round: {len(seed_idx)} seeds, labels, state rows and change "
-        f"counts equal in both modes (tolerance 0); kernel "
-        f"{results['prop_round']['ms']:.3f} ms, plain (brute neighbours "
-        f"within h) {results['prop_round']['plain_ms']:.3f} ms")
-    results["propagate"] = propagate_check(
-        grid, fresh, nk, t2k, all_q, seed_idx, qall, inv, h2,
-        results["prop_round"], grid_bytes + 32 * n + n + 32 * n + 32 * n + 4,
-        10 * pairs)
-    crowded_check(p1, h, k2, seed)
+    grid = CellGrid.from_index(build_grid(p1, h), dev)
+    results = {"knn_sorted": knn_check(grid, "self-join grid")}
+    results.update(seg_prop_checks(grid, SV, "self-join grid"))
+    crowded_check(p1, h, SOR_K + 1, seed)
 
     # K1 at the two shapes the main path gives it: the stage-1 percentile
     # (moving source, cell-sorted, against the static target grid of
@@ -503,15 +589,28 @@ def range_nn1_check(shape: str, grid, q, qm, reps: int) -> dict:
     return res
 
 
-def stats_check(ks, ps, h: float, q_mask, what: str):
+# the normals of two sets of K3 moments that meet the 1e-5 moment tolerance
+# (every covariance entry within 3e-5 h^2, so the error's spectral norm
+# within 9e-5 h^2) agree to |n . n'| >= 1 - 1e-5 (an angle of 4.47e-3)
+# wherever the two smallest eigenvalues lie this far apart, in units of
+# h^2 (Davis-Kahan: sin angle <= 2 |error| / gap)
+NORMAL_GAP = 2 * 9e-5 / 4.47e-3
+
+
+def stats_check(ks, ps, h: float, q_mask, what: str,
+                determined_only: bool = False):
     """K3's rows against the plain version's: t2 and counts equal; the
     moment sums, taken in another order, within 1e-5 of each moment's
     natural scale (count * h for first moments, count * h^2 for second);
-    normals |n . n'| >= 1 - 1e-5.  Returns (largest difference, least
-    |n . n'| over the live queries)."""
+    normals |n . n'| >= 1 - 1e-5, everywhere, or with ``determined_only``
+    where the moment tolerance determines the normal to that (an eigengap
+    of NORMAL_GAP * h^2; the other queries' normals are reported).
+    Returns (largest difference, least |n . n'| over the live queries, or
+    over those determined)."""
     import torch
 
     from piecewise_icp_torch.ops import seg_cuda
+    from piecewise_icp_torch.ops.eigh3 import eigvals3
 
     require(bool((ks[:, 1] == ps[:, 1]).all()), f"{what}: t2 differs")
     require(bool((ks[:, 0] == ps[:, 0]).all()), f"{what}: counts differ")
@@ -524,13 +623,23 @@ def stats_check(ks, ps, h: float, q_mask, what: str):
     require(bool((ks[:, 11:] == 0).all()), f"{what}: the row's tail is not 0")
     dots = (seg_cuda.normals_from_stats(ks)
             * seg_cuda.normals_from_stats(ps)).sum(dim=1).abs()[q_mask]
+    if determined_only:
+        vals = eigvals3(seg_cuda.covariance_from_stats(ps))[q_mask]
+        firm = (vals[:, 1] - vals[:, 2]) >= NORMAL_GAP * h * h
+        loose = dots[~firm]
+        log(f"{what}: the moments determine {int(firm.sum())} of "
+            f"{len(dots)} normals to 1 - 1e-5 (eigengap >= "
+            f"{NORMAL_GAP * h * h:.4g} m^2); of the other {len(loose)}, "
+            f"{int((loose < 1 - 1e-5).sum())} differ beyond it (least "
+            f"|n.n'| {float(loose.min()) if len(loose) else 1.0:.8f})")
+        dots = dots[firm]
     require(bool((dots >= 1 - 1e-5).all()), f"{what}: normals differ")
     return float((ks - ps).abs().max()), float(dots.min())
 
 
 def propagate_check(grid, fresh, normals, t2, q_mask, seed_idx, qall, inv,
                     h2, one_round: dict, round_bytes: float,
-                    round_ops: float) -> dict:
+                    round_ops: float, sv: float = SV) -> dict:
     """K4's whole loop in one launch against the host loop over the plain
     round (labels and round count, tolerance 0), also with the round cap
     reached before convergence; its time beside the host loop over the
@@ -557,11 +666,11 @@ def propagate_check(grid, fresh, normals, t2, q_mask, seed_idx, qall, inv,
 
     def whole(max_rounds: int = 256):
         return seg_cuda._propagate_kernel(grid, normals, t2, q_mask, seed_idx,
-                                          SV, max_rounds)
+                                          sv, max_rounds)
 
     def plain(max_rounds: int = 256):
         return seg_cuda.propagate_rounds_plain(
-            fresh(grid), normals, t2, q_mask, seed_idx, SV, max_rounds)
+            fresh(grid), normals, t2, q_mask, seed_idx, sv, max_rounds)
 
     n0 = dict(_cuda.LAUNCHES)
     kl, kr = whole()
@@ -1056,6 +1165,311 @@ def sparse_staged_phase(seed: int) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# BASELINE configurations 3 and 4: the rockfall series at full scale
+# ---------------------------------------------------------------------------
+
+
+class _PortLog(logging.Handler):
+    """The port's log messages while attached to its logger (what path a
+    cloud took, the rescues, the refine, the guard's decisions)."""
+
+    def __init__(self) -> None:
+        super().__init__(logging.INFO)
+        self.msgs: list = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.msgs.append(record.getMessage())
+
+    def found(self, pattern: str) -> list:
+        """The groups of every message that ``pattern`` matches."""
+        return [m.groups() for m in map(re.compile(pattern).match, self.msgs)
+                if m]
+
+
+def corner_gap(t_a: np.ndarray, t_b: np.ndarray, pts: np.ndarray) -> float:
+    """Largest distance (m) between the corners of the box of ``pts`` moved
+    by the two transforms."""
+    lo, hi = pts.min(axis=0), pts.max(axis=0)
+    c = np.array([[(lo, hi)[b][i] for i, b in enumerate(k)]
+                  for k in np.ndindex(2, 2, 2)], np.float64)
+    c = np.c_[c, np.ones(8)]
+    return float(np.linalg.norm((c @ t_a.T - c @ t_b.T)[:, :3],
+                                axis=1).max())
+
+
+def _truth_err(t_est: np.ndarray, t_true: np.ndarray):
+    """Largest parameter error against the truth: (mgon, mm), as the
+    rockfall runner reports it."""
+    from piecewise_icp_torch.ops.transform import matrix_to_params_gon
+
+    err = matrix_to_params_gon(t_est) - matrix_to_params_gon(t_true)
+    return 1e3 * float(np.abs(err[:3]).max()), \
+        1e3 * float(np.abs(err[3:]).max())
+
+
+def rockfall_phase(seed: int) -> dict:
+    """BASELINE configurations 3 and 4 on the rockfall series at the
+    reference's scale (6 epochs of a 150 m x 100 m slope at 0.3 m, seed 7;
+    ``seed`` is not used): the pair of epochs 1 and 2 through
+    ``register_pair`` with no ``device`` (its path, patches, iterations,
+    refine, truth error and warm time; its transform within 0.5 mm at the
+    source's box corners of the JAX package's, ``JAX_ROCKFALL_PAIR``), the
+    same pair with the acceptance guard firing, and the Kalman-smoothed 4D
+    campaign through ``piecewise_icp_4d_call`` from the file the port
+    writes; the launches of the phase (K1-K4 required, no plain version on
+    a CUDA tensor).  Then K1-K5 against their plain versions at this path's
+    shapes.  Returns each kernel's numbers at these shapes."""
+    import torch
+
+    import piecewise_icp_torch as pwt
+    from piecewise_icp_torch.io import formats, read_pcd
+    from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.ops import _cuda
+    from piecewise_icp_torch.ops.preprocess import (_SOR_RESCUE,
+                                                    voxel_downsample)
+    from piecewise_icp_torch.utils import rockfall
+    from piecewise_icp_torch.utils.logging import GLOBAL_TIMER
+    from piecewise_icp_torch.utils.logging import log as port_log
+
+    t_phase = time.perf_counter()
+    rec = _PortLog()
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scans = rockfall.generate_rockfall(
+            tmp, ROCKFALL_EPOCHS, seed=ROCKFALL_SEED, extent=ROCKFALL_EXTENT,
+            res=ROCKFALL_RES)
+        gen_s = time.perf_counter() - t0
+        files = sorted(os.listdir(scans))
+        pts1, pts2 = (read_pcd(os.path.join(scans, f)) for f in files[:2])
+        gt_file = os.path.join(tmp, "defined_transformations.txt")
+        _, gt = formats.read_ground_truth_transforms(gt_file)
+        cfg = rockfall.rockfall_config(scans, tmp + "/")
+        down = [len(voxel_downsample(p, ROCKFALL_RES)) for p in (pts1, pts2)]
+        log(f"rockfall: {ROCKFALL_EPOCHS} epochs of a {ROCKFALL_EXTENT} m "
+            f"slope at {ROCKFALL_RES} m (seed {ROCKFALL_SEED}) written in "
+            f"{gen_s:.2f} s: {files[0]}, ...; the pair has {len(pts1)} / "
+            f"{len(pts2)} points, {down[0]} / {down[1]} after the voxel grid")
+
+        def pair(c):
+            """``register_pair`` of epochs 1 and 2 on the card (no device
+            named), its seconds, the port's log messages kept in ``rec``."""
+            rec.msgs.clear()
+            port_log.addHandler(rec)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = register_pair(pts1, pts2, c, sor_mult=c.sor_std_mult_pair)
+                torch.cuda.synchronize()
+                return r, time.perf_counter() - t0
+            finally:
+                port_log.removeHandler(rec)
+
+        # ---- configuration 3, the first call of the phase ----
+        _cuda.reset_counts()
+        res3, cold_s = pair(cfg)
+        declined = [int(n) for (n,) in rec.found(
+            r"unified SOR: (\d+) unresolved > budget")]
+        rescued = [int(n) for (n,) in rec.found(
+            r"device SOR: (\d+) unresolved queries re-measured")]
+        selected = rec.found(r"selected patches: (\d+) / (\d+)")
+        refine = rec.found(r"robust refine: (\d+)/(\d+) stable patches "
+                           r"rejected .*\|dT\|=(\S+) mm")
+        core = res3.core
+        t3 = res3.trans_mat
+        require(t3.shape == (4, 4) and np.isfinite(t3).all()
+                and np.isfinite(res3.vcm).all(),
+                "rockfall pair: transform or VCM not finite")
+        rot, tr = _truth_err(t3, gt[1])
+        gap = corner_gap(t3, JAX_ROCKFALL_PAIR, pts2)
+        log(f"rockfall pair (configuration 3): the unified path declined "
+            f"{len(declined)} of 2 clouds, {declined} unresolved SOR queries "
+            f"against its budget of {_SOR_RESCUE}; the staged SOR then "
+            f"re-measured {rescued} on the card; supervoxels selected as "
+            f"patches {selected}; patches in the core {core.num_patches}; "
+            f"outer iterations {core.iterations}, inner ICP iterations "
+            f"{core.total_icp_iters}; robust refine (rejected / stable, "
+            f"|dT| mm) {refine}; stable ratio {core.stable_ratio:.4f}; "
+            f"guard draws {res3.guard_draws}")
+        log(f"rockfall pair: error against the truth {rot:.4f} mgon, "
+            f"{tr:.4f} mm (the JAX package's report: 0.55 mgon, 2.571 mm on "
+            f"the TPU); {1e3 * gap:.6f} mm off the JAX package's transform "
+            f"at the source's box corners (bound 0.5 mm); VCM diagonal "
+            f"{np.diag(res3.vcm).tolist()}")
+        require(len(declined) == 2 and min(declined) > _SOR_RESCUE,
+                f"rockfall pair: the unified path did not decline both "
+                f"clouds ({declined})")
+        require(len(rescued) == 2, "rockfall pair: the staged SOR did not "
+                f"re-measure unresolved queries on both clouds ({rescued})")
+        require(gap < 5e-4, f"rockfall pair: {1e3 * gap:.4f} mm off the JAX "
+                "package's transform at the box corners")
+        warm = [pair(cfg)[1] for _ in range(3)]
+        log(f"rockfall pair: cold {cold_s:.3f} s, warm median of 3 "
+            f"{statistics.median(warm):.3f} s "
+            f"({', '.join(f'{w:.3f}' for w in warm)})")
+        profile_run(lambda: pair(cfg), "rockfall warm pair")
+
+        # ---- the same pair with the acceptance guard firing ----
+        resg, guard_s = pair(rockfall.rockfall_config(
+            scans, tmp + "/", guard_stable_ratio=ROCKFALL_GUARD_RATIO))
+        probe = rec.found(r"acceptance guard: (draw disagreement|draws "
+                          r"agree) \(?(\S+) sigma")
+        fused = rec.found(r"acceptance guard: GLS-fused draws (\[.*\]) of "
+                          r"(\d+)")
+        rot_g, tr_g = _truth_err(resg.trans_mat, gt[1])
+        log(f"rockfall pair, guard at a stable ratio of "
+            f"{ROCKFALL_GUARD_RATIO}: {resg.guard_draws} draws; probe "
+            f"{probe} (escalation above {cfg.guard_escalate_z} sigma); "
+            f"fused by sigma0 {fused}; error against the truth "
+            f"{rot_g:.4f} mgon, {tr_g:.4f} mm; "
+            f"{1e3 * corner_gap(resg.trans_mat, t3, pts2):.4f} mm from the "
+            f"unguarded pair at the box corners; {guard_s:.3f} s")
+        require(resg.guard_draws > 1 and np.isfinite(resg.trans_mat).all(),
+                "rockfall pair: the acceptance guard did not fire")
+
+        # ---- configuration 4: the Kalman-smoothed 4D campaign ----
+        out = pathlib.Path(tmp) / "out_mode-1"
+        conf = os.path.join(tmp, "config_4d.txt")
+        rockfall.rockfall_config(scans, str(out) + "/").to_reference_file(
+            conf)
+        GLOBAL_TIMER.records.clear()
+        t0 = time.perf_counter()
+        ok = pwt.piecewise_icp_4d_call(
+            conf, 0, ROCKFALL_EPOCHS, -1, overlap_thd=0.75,
+            ground_truth=gt_file, device="cuda", kalman_enabled=True,
+            **rockfall.FILE_OVERRIDES)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        plain_on_cuda = dict(_cuda.PLAIN_ON_CUDA)
+        require(ok, "rockfall 4d: piecewise_icp_4d_call returned False")
+        for name in OUTPUTS_4D:
+            require((out / name).exists(), f"rockfall 4d: {name} missing")
+        stamps = [int(f.split("- ")[1][:6]) for f in files]
+        for ts in stamps[1:]:
+            require((out / f"{ts}_Adaptive_TransMatrix.txt").exists(),
+                    f"rockfall 4d: pair report of {ts} missing")
+        plan = formats.read_reg_pairs(out / "RegPairFile.txt")
+        ts_rows, _, _ = formats.read_trans_matrices(
+            out / "TransMatrices_toRef.txt", ROCKFALL_EPOCHS - 1)
+        require(ts_rows == stamps[1:] and stamps == sorted(stamps),
+                f"rockfall 4d: rows {ts_rows}, not the files' timestamps "
+                f"in time order {stamps[1:]}")
+        require(sorted(plan) == list(range(1, ROCKFALL_EPOCHS))
+                and all(0 <= t < s for s, t in plan.items()),
+                f"rockfall 4d: plan {plan}")
+        errors = formats.read_abs_errors(out / "TransPara_AbsError.txt")
+        smoothed = formats.read_abs_errors(
+            out / "TransPara_AbsError_smoothed.txt")
+        for e in (errors, smoothed):
+            require(e.shape == (ROCKFALL_EPOCHS - 1, 6)
+                    and np.isfinite(e).all(), "rockfall 4d: bad error table")
+        phases = [json.loads(ln) for ln in
+                  (out / "phase_timings.jsonl").read_text().splitlines()]
+        pair_s = [r["seconds"] for r in phases if r["phase"] == "pair"]
+        plan_s = sum(r["seconds"] for r in phases
+                     if r["phase"] == "pair_planning")
+        digest = {name: hashlib.sha256((out / name).read_bytes())
+                  .hexdigest()[:16] for name in REPRO_TABLES}
+        k5_calls = collections.Counter(
+            r["phase"] for r in GLOBAL_TIMER.records
+            if r["phase"] == K5_RESCUE_PHASE or r["phase"] in K5_OTHER_PHASES)
+    log(f"rockfall 4d (configuration 4): plan (source: target, epochs from "
+        f"0) {plan}, rows {ts_rows}; chained errors mean "
+        f"{errors[:, :3].mean(0).round(3).tolist()} mgon, "
+        f"{errors[:, 3:].mean(0).round(4).tolist()} mm, max "
+        f"{float(errors[:, :3].max())!r} mgon, "
+        f"{float(errors[:, 3:].max())!r} mm; smoothed mean "
+        f"{smoothed[:, :3].mean(0).round(3).tolist()} mgon, "
+        f"{smoothed[:, 3:].mean(0).round(4).tolist()} mm, max "
+        f"{float(smoothed[:, :3].max())!r} mgon, "
+        f"{float(smoothed[:, 3:].max())!r} mm "
+        f"(the JAX package's report on the TPU: mean tx 9.561 mm, max "
+        f"16.644 mm); table digests {digest}")
+    log(f"rockfall 4d: {wall:.3f} s for {ROCKFALL_EPOCHS} epochs "
+        f"({wall / ROCKFALL_EPOCHS:.3f} s/epoch); from phase_timings.jsonl: "
+        f"planning {plan_s:.3f} s, pair phases {sum(pair_s):.3f} s "
+        f"({sum(pair_s) / len(pair_s):.3f} s a pair, "
+        f"{(plan_s + sum(pair_s)) / ROCKFALL_EPOCHS:.3f} s/epoch with "
+        f"planning); calls of the brute 1-NN by phase {dict(k5_calls)}")
+    log(f"rockfall: launches of the phase (configuration 3 cold, 3 warm, "
+        f"profiled, guarded, configuration 4) {launches}; plain versions on "
+        f"CUDA: "
+        f"{plain_on_cuda or 'none'}")
+    for name in PAIR_KERNELS:
+        require(launches.get(name, 0) > 0,
+                f"rockfall: kernel {name} was not launched")
+    require(not plain_on_cuda,
+            f"rockfall: plain versions ran on CUDA tensors: {plain_on_cuda}")
+    results = rockfall_kernels(res3, pts1, pts2, cfg.svsize1)
+    for name, row in results.items():
+        row["launches"] = int(launches.get(name, 0))
+    log(f"rockfall phase: {time.perf_counter() - t_phase:.1f} s")
+    return results
+
+
+def rockfall_kernels(res3, pts1: np.ndarray, pts2: np.ndarray,
+                     sv: float) -> dict:
+    """K1-K5 against their plain versions at the rockfall path's shapes
+    (the tolerances of the kernel phases): K2 on the staged SOR's grid of
+    the voxelised target (the grid whose unresolved queries the staged SOR
+    re-measures), K3 and K4 on the segmentation grid of the prepared target,
+    K1 at stage 1 (the source in cell order on the target's grid of 4 x
+    res), K5 at adaptive planning's shape (an epoch against the one before,
+    no mask: no grid of h = DTinit fits this extent)."""
+    import torch
+
+    from piecewise_icp_torch.models.piecewise_icp import _cell_order
+    from piecewise_icp_torch.models.segmentation_device import _seg_h
+    from piecewise_icp_torch.ops import nn_cuda
+    from piecewise_icp_torch.ops.grid_nn import (MAX_GRID_CELLS, CellGrid,
+                                                 build_grid)
+    from piecewise_icp_torch.ops.preprocess import voxel_downsample
+
+    dev = torch.device("cuda")
+    res = {}
+    h_sor = max(1.5 * np.sqrt((SOR_K + 1) / np.pi), 4.0) * ROCKFALL_RES
+    down = voxel_downsample(pts1, ROCKFALL_RES)
+    res["knn_sorted"] = knn_check(
+        CellGrid.from_index(build_grid(down, h_sor), dev),
+        "rockfall, staged SOR grid")
+    target = res3.core.patches1.points
+    res.update(seg_prop_checks(
+        CellGrid.from_index(build_grid(target, _seg_h(KNN_NORMALS,
+                                                      ROCKFALL_RES)), dev),
+        sv, "rockfall, segmentation grid", determined_only=True))
+    index1 = build_grid(target, 4.0 * ROCKFALL_RES)
+    source = res3.core.patches2.points
+    q = torch.from_numpy(source[_cell_order(source, index1)]).to(dev)
+    res["range_nn1"] = range_nn1_check(
+        "rockfall stage 1", CellGrid.from_index(index1, dev), q,
+        torch.ones(q.shape[0], dtype=torch.bool, device=dev), reps=5)
+    span = (pts1.max(axis=0) - pts1.min(axis=0)) / 0.1
+    log(f"rockfall planning: a grid of h = DTinit = 0.1 m over the epoch "
+        f"would hold {int(np.prod(np.floor(span) + 1)):,} cells (the cap is "
+        f"{MAX_GRID_CELLS:,}): planning takes the brute 1-NN (K5)")
+    t = torch.from_numpy(pts1).to(dev)
+    q = torch.from_numpy(pts2).to(dev)
+    ki, kd2 = nn_cuda._nn1_brute_kernel(q, t)
+    pi, pd2 = nn_cuda.nn1_brute_plain(q, t)
+    torch.cuda.synchronize()
+    require(bool((ki == pi).all()), "K5 (rockfall planning): ids differ")
+    require(bool((kd2 == pd2).all()),
+            "K5 (rockfall planning): squared distances differ")
+    nq, nt = q.shape[0], t.shape[0]
+    res["nn1_brute"] = dict(
+        max_abs_err=max_abs(torch.sqrt(kd2), torch.sqrt(pd2)),
+        ms=time_ms(lambda: nn_cuda._nn1_brute_kernel(q, t)),
+        plain_ms=time_ms(lambda: nn_cuda.nn1_brute_plain(q, t), reps=1),
+        **bound(12 * nq + 12 * nt + 8 * nq, 9 * nq * nt))
+    log(f"K5 nn1_brute, rockfall planning {nq} x {nt} (no masks): ids and "
+        f"squared distances equal (tolerance 0); kernel "
+        f"{res['nn1_brute']['ms']:.3f} ms, plain (chunked brute) "
+        f"{res['nn1_brute']['plain_ms']:.3f} ms, bound "
+        f"{res['nn1_brute']['bound_ms']:.3f} ms")
+    return res
+
+
+# ---------------------------------------------------------------------------
 # reproducibility, ICP variants, change screen, exports and hooks, C ABI
 # ---------------------------------------------------------------------------
 
@@ -1268,8 +1682,6 @@ def exports_hooks_phase(seed: int) -> None:
     """``isVisual: 1`` through the file entry point writes the four colored
     PCDs; ``PWICP_PROFILE_DIR`` yields a trace; ``PWICP_NO_UNIFIED=1`` runs
     the smoke pair through the staged path at full width."""
-    import os
-
     import torch
 
     import piecewise_icp_torch as pwt
@@ -1368,7 +1780,6 @@ def capi_phase(seed: int) -> None:
     ``PWICP_TORCH_DEVICE`` unset (the card): returns true, writes the
     report, launches the pair path's kernels."""
     import ctypes
-    import os
     import sysconfig
 
     import piecewise_icp_torch as pwt
@@ -2078,7 +2489,8 @@ def kernel_times(variant: str, seed: int) -> dict:
 ONLY_PHASES = {"reproducible": reproducible_phase, "variants": variants_phase,
                "change_screen": change_screen_phase,
                "exports_hooks": exports_hooks_phase, "capi": capi_phase,
-               "pair": pair_phase, "sharded": sharded_phase}
+               "pair": pair_phase, "sharded": sharded_phase,
+               "rockfall": rockfall_phase}
 
 
 def main(argv=None) -> int:
@@ -2149,6 +2561,7 @@ def main(argv=None) -> int:
     pair_phase(args.seed)
     staged_pair_phase(args.seed)
     sparse_staged_phase(args.seed)
+    rockfall = rockfall_phase(args.seed)
     reproducible_phase(args.seed)
     variants_phase(args.seed)
     change_screen_phase(args.seed)
@@ -2159,9 +2572,14 @@ def main(argv=None) -> int:
     foreign = _foreign_modules()
     require(not foreign, f"JAX or the JAX package was imported: {foreign}")
 
+    # each kernel's launches in the campaign and its numbers at the
+    # campaign's shapes; "_rockfall": its launches in the rockfall phase and
+    # its numbers at that path's shapes
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": int(launches.get(name, 0)), **kern[name]}
+         "launches": int(launches.get(name, 0)), **kern[name],
+         **{f"{k}_rockfall": v for k, v in rockfall[name].items()
+            if k != "library_ms"}}
         for name, (src, rep) in REPLACES.items()]}
     for k in record["kernels"]:
         log(f"{k['name']}: {k['launches']} launches in the campaign, "
@@ -2170,6 +2588,11 @@ def main(argv=None) -> int:
             + (f"; {50 * k['bound_ms'] / k['ms']:.1f}% were the operations "
                f"counted against the data sheet's 67e12 a second"
                if k["bound_by"] == "operations" else ""))
+        log(f"{k['name']}, rockfall shape: {k['launches_rockfall']} "
+            f"launches in the phase, {k['ms_rockfall']:.3f} ms against a "
+            f"bound of {k['bound_ms_rockfall']:.4f} ms "
+            f"({k['bound_by_rockfall']}): "
+            f"{100 * k['bound_ms_rockfall'] / k['ms_rockfall']:.1f}% of it")
         if "ms_plan" in k:
             log(f"{k['name']}, planning shape: {k['ms_plan']:.3f} ms against "
                 f"a bound of {k['bound_ms_plan']:.4f} ms "

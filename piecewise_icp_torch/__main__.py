@@ -3,6 +3,7 @@
     python -m piecewise_icp_torch pair --config conf.txt --out results/PairReg/
     python -m piecewise_icp_torch 4d --config conf.txt --epochs 20 --mode -1
     python -m piecewise_icp_torch 4d ... --kalman --shards 4 --shard 1
+    python -m piecewise_icp_torch 4d ... --epoch-prefix "- " --epoch-digits 6
     python -m piecewise_icp_torch pair ... --mesh-devices 2
 
 The two entry points of the reference (Registration.h:36,49), on
@@ -36,6 +37,11 @@ def main(argv=None) -> int:
     p_4d.add_argument("--overlap-thd", type=float, default=0.75)
     p_4d.add_argument("--ground-truth", default=None)
     p_4d.add_argument("--kalman", action="store_true")
+    p_4d.add_argument("--epoch-prefix", default=None,
+                      help="text before the timestamp in the scan file "
+                           "names (default: Epoch_)")
+    p_4d.add_argument("--epoch-digits", type=int, default=None,
+                      help="digits of the timestamp (default: 3)")
     p_4d.add_argument("--shard", type=int, default=0,
                       help="this worker's shard index in an epoch fleet")
     p_4d.add_argument("--shards", type=int, default=1,
@@ -73,6 +79,10 @@ def main(argv=None) -> int:
         from .models.four_d import piecewise_icp_4d_call as entry
         if args.kalman:
             overrides["kalman_enabled"] = True
+        if args.epoch_prefix is not None:
+            overrides["epoch_prefix"] = args.epoch_prefix
+        if args.epoch_digits is not None:
+            overrides["epoch_digits"] = args.epoch_digits
         call_args = (args.config, args.start_epoch, args.epochs, args.mode,
                      args.overlap_thd)
         overrides.update(ground_truth=args.ground_truth,

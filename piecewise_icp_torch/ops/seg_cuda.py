@@ -128,6 +128,13 @@ def seg_stats(grid: CellGrid, q_mask: torch.Tensor, k: int
 def normals_from_stats(stats: torch.Tensor) -> torch.Tensor:
     """The K3 epilogue: query-centred moments -> covariance -> smallest
     eigenvector (closed form)."""
+    cov = covariance_from_stats(stats)
+    vals = eigvals3(cov)
+    return smallest_eigvec3(cov, vals[..., 2])
+
+
+def covariance_from_stats(stats: torch.Tensor) -> torch.Tensor:
+    """The [n, 3, 3] neighbourhood covariances of K3's rows."""
     cnt = torch.clamp(stats[:, 0], min=1.0)
     mean = stats[:, 2:5] / cnt[:, None]
     xx = stats[:, 5] / cnt - mean[:, 0] * mean[:, 0]
@@ -136,12 +143,10 @@ def normals_from_stats(stats: torch.Tensor) -> torch.Tensor:
     xy = stats[:, 8] / cnt - mean[:, 0] * mean[:, 1]
     xz = stats[:, 9] / cnt - mean[:, 0] * mean[:, 2]
     yz = stats[:, 10] / cnt - mean[:, 1] * mean[:, 2]
-    cov = torch.stack([
+    return torch.stack([
         torch.stack([xx, xy, xz], dim=-1),
         torch.stack([xy, yy, yz], dim=-1),
         torch.stack([xz, yz, zz], dim=-1)], dim=-2)
-    vals = eigvals3(cov)
-    return smallest_eigvec3(cov, vals[..., 2])
 
 
 # ---------------------------------------------------------------------------

@@ -97,6 +97,48 @@ class TestSegStats:
         dots = np.abs((nrm[ok] * jnrm[ok]).sum(axis=1))
         assert (dots >= 1 - 1e-5).all()
 
+    def test_complete_where_the_slab_bins_a_point_apart(self, rng):
+        """A deliberate divergence (ROADMAP Queue C): the JAX
+        package's slab layout bins points into x runs in float64, while
+        ``build_grid`` sorts them by float32 cells.  One point moved onto an
+        x-cell boundary where the two disagree splits a run, and the JAX
+        package's windows then miss neighbours of many queries; the port's
+        kernels read the grid's own cells, and every query's neighbourhood
+        is complete (its count that of a brute search within its radius)."""
+        pts = terrain_cloud(rng, n_side=64).astype(np.float64)
+        pts = (pts - pts.mean(axis=0)).astype(np.float32)
+        ox = pts[:, 0].min()
+        i = int(np.argmin(np.abs(pts[:, 0]) + np.abs(pts[:, 1])))
+        x = np.float32(ox + (np.floor((pts[i, 0] - ox) / np.float32(H)) + 1)
+                       * H)
+        # the float32 neighbours of the boundary, nearest first
+        steps = sorted(range(-64, 65), key=abs)
+        for s in steps:
+            xs = x
+            for _ in range(abs(s)):
+                xs = np.nextafter(xs, np.float32(np.copysign(np.inf, s)),
+                                  dtype=np.float32)
+            if (np.floor((xs - ox) / np.float32(H))
+                    != np.floor((np.float64(xs) - np.float64(ox)) / H)):
+                break
+        else:
+            pytest.fail("no float32 x near the boundary bins apart")
+        pts[i, 0] = xs
+        grid = jbuild_grid(pts, H)
+        sp = slab_padded_self_join(grid, lane=_KQT, block=_KQT * _TPB,
+                                   tile_multiple=_TPB)
+        _, jcnt, _, _ = seg_stats(
+            *_jax_common(grid, sp), H, K,
+            host_ranges=(jnp.asarray(sp.ranges), jnp.asarray(sp.covered)))
+        jcnt = np.asarray(jcnt)[sp.pos_map]
+        cg = CellGrid.from_index(build_grid(pts, H), CPU)
+        t2, cnt, _ = seg_cuda.seg_stats(cg, torch.ones(grid.n_real,
+                                                       dtype=torch.bool), K)
+        d2 = seg_cuda.sqdist(cg.points[:, None, :], cg.points[None, :, :])
+        assert torch.equal(cnt, (d2 <= t2[:, None]).sum(dim=1).float())
+        assert sp.covered.all()
+        assert (cnt.numpy() > 0).all() and (jcnt == 0).any()
+
 
 class TestPropagation:
     @pytest.fixture()
