@@ -41,7 +41,14 @@ two entry points on the card:
    corners of the JAX package's, a constant here), the same pair with the
    acceptance guard firing, and the 6-epoch Kalman campaign through
    ``piecewise_icp_4d_call``; then K1-K5 against their plain versions at
-   that path's shapes,
+   that path's shapes;
+6. BASELINE configuration 5 on the series of
+   ``piecewise_icp_torch.utils.scale``: 101 epochs of the 142,884-point
+   base as epoch fleets of 1, 2 and 4 concurrent worker processes sharing
+   the card (``run_fleet``; the tables of every fleet the same bytes, each
+   worker's launches read from its report), with the card's utilization
+   and memory sampled while they run; then the quasi-static Kalman
+   campaign of the same base,
 
 each checked against the known transforms, with the launch counts of the
 kernels read around each path.  Any failed check raises, as does a loaded
@@ -53,7 +60,7 @@ campaign, which runs all five kernels; times, bounds and errors of this
 run; the whole-loop launch of the label propagation has a row of its own).
 
 ``python3 chip_smoke.py --only PHASE [PHASE ...]`` builds the kernels and
-runs only the named phases of 2, 3 and 5 (or the pair of 1), with no JSON
+runs only the named phases of 2, 3, 5 and 6 (or the pair of 1), with no JSON
 record: the way to run one phase on another tree, such as a parent's.
 
 ``python3 chip_smoke.py --sweep VARIANT [VARIANT ...]`` runs none of the
@@ -88,6 +95,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -177,6 +185,22 @@ JAX_ROCKFALL_PAIR = np.array([
     [8.718853958043741e-05, 8.367902684357334e-05,
      1.0000000078575995, -0.004299780845478551],
     [0.0, 0.0, 0.0, 1.0]])
+
+# BASELINE configuration 5: the scaled 4D campaign of
+# piecewise_icp_torch/utils/scale.py (eval/scale_demo.py's series: the
+# 142,884-point base moved by a random walk of 5e-4 rad and 4 mm a step,
+# fresh 1.5 mm noise each epoch, 4-digit names; its configuration res 0.005,
+# SV 0.05, DTinit 0.05, DTmin 0.004, Kalman), fixed interval 1, as epoch
+# fleets of W concurrent worker processes sharing the card
+FLEET_EPOCHS = 101
+FLEET_WORKERS = (1, 2, 4)
+# the kernels every worker of the fleet must launch (DTinit set: no K5)
+FLEET_KERNELS = ("range_nn1", "knn_sorted", "seg_stats", "propagate")
+# the quasi-static Kalman campaign (eval/kalman_quasistatic.py) and the
+# independent-component reduction the JAX package reports for it on the
+# reference scan, another base (eval/kalman_quasistatic.json)
+QUASI_EPOCHS = 12
+JAX_QUASI_REDUCTION = 3.46
 
 # the tables two runs of one campaign must write byte for byte
 REPRO_TABLES = ("TransMatrices_toRef.txt", "TransPara_AbsError.txt")
@@ -2312,6 +2336,207 @@ def four_d_phase(seed: int, k5_ms: float) -> dict:
     return launches
 
 
+class SmiSampler:
+    """``nvidia-smi``'s ``utilization.gpu`` and ``memory.used`` about every
+    100 ms while the ``with`` block runs, each sample with the time
+    ``nvidia-smi`` stamps on it (its output may reach the pipe late)."""
+
+    def __enter__(self):
+        self.samples = []
+        self.proc = subprocess.Popen(
+            ["nvidia-smi",
+             "--query-gpu=timestamp,utilization.gpu,memory.used",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+        return self
+
+    def _read(self) -> None:
+        import datetime
+
+        for line in self.proc.stdout:
+            try:
+                stamp, util, mem = (v.strip() for v in line.split(","))
+                t = datetime.datetime.strptime(
+                    stamp, "%Y/%m/%d %H:%M:%S.%f").timestamp()
+                self.samples.append((t, float(util), float(mem)))
+            except ValueError:
+                continue
+
+    def __exit__(self, *exc) -> None:
+        self.proc.terminate()
+        self.proc.wait(timeout=30)
+        self.reader.join(timeout=30)
+
+    def within(self, window) -> dict:
+        """Mean utilization (%), peak memory used (MiB) and the number of
+        samples between ``window``'s two times."""
+        s = [x for x in self.samples if window[0] <= x[0] <= window[1]]
+        return {"samples": len(s),
+                "util_mean_pct": statistics.mean(x[1] for x in s)
+                if s else None,
+                "mem_peak_mib": max(x[2] for x in s) if s else None}
+
+
+def smi_query(field: str) -> str:
+    out = subprocess.run(
+        ["nvidia-smi", f"--query-gpu={field}", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip()
+
+
+def fleet_phase(seed: int) -> dict:
+    """BASELINE configuration 5: the 101-epoch series of
+    ``piecewise_icp_torch.utils.scale`` (the 142,884-point base of
+    ``seed``) as fleets of 1, 2 and 4 concurrent worker processes sharing
+    the card (``run_fleet``: ``4d --shards W --shard i --no-finalize``,
+    then one ``--resume`` finalise), each into a fresh folder.  Every
+    worker exits 0 and launches K1-K4 with no plain version on the card;
+    100 pair files and every table exist; the tables of W = 2 and 4 equal
+    W = 1's byte for byte; every pair within 2 mm mean and 5 mm max of its
+    relative truth.  Prints each fleet's walls, epochs/s, speedup and
+    efficiency, the card's utilization and memory while the workers run.
+    Then the quasi-static Kalman campaign of the same base in this
+    process (smoothing must not degrade the mean error).  Returns each
+    kernel's launches in every worker of the three fleets."""
+    import torch
+
+    from piecewise_icp_torch.io import formats
+    from piecewise_icp_torch.ops import _cuda
+    from piecewise_icp_torch.ops.transform import matrix_to_params_gon
+    from piecewise_icp_torch.utils import scale
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    mode = smi_query("compute_mode")
+    cores = len(os.sched_getaffinity(0))
+    log(f"fleet: compute mode {mode}; os.cpu_count() {os.cpu_count()}, "
+        f"{cores} cores in this process's affinity; "
+        f"{torch.cuda.device_count()} card(s): {card}")
+    torch.cuda.empty_cache()
+    base = scale.default_base(seed)
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        scans = scale.generate_series(tmp, FLEET_EPOCHS, base, seed=seed)
+        gt = os.path.join(tmp, "defined_transformations.txt")
+        log(f"fleet: series of {FLEET_EPOCHS} epochs of {len(base)} points "
+            f"written in {time.perf_counter() - t0:.2f} s")
+        for w in FLEET_WORKERS:
+            out = os.path.join(tmp, f"out_{w}w")
+            with SmiSampler() as smi:
+                rec = scale.run_fleet(
+                    scale.scale_config(scans, out), out, FLEET_EPOCHS, 1, w,
+                    device="cuda", ground_truth=gt,
+                    baseline_s=runs[1]["pairs_wall_s"] if w > 1 else None,
+                    timeout=900)
+            rec["smi"] = smi.within(rec["window"])
+            rec["tables"] = {name: pathlib.Path(out, name).read_bytes()
+                             for name in scale.FLEET_TABLES}
+            if w == 1:
+                residuals = scale.pair_residuals_mm(out, scans, gt,
+                                                    FLEET_EPOCHS - 1)
+                errors = formats.read_abs_errors(
+                    os.path.join(out, "TransPara_AbsError.txt"))
+                smoothed = formats.read_abs_errors(
+                    os.path.join(out, "TransPara_AbsError_smoothed.txt"))
+                digest = scale.table_digests(out)["TransMatrices_toRef.txt"]
+            pairs = sorted(os.listdir(os.path.join(out, "pairs")))
+            require(pairs == [f"pair_{k:04d}.npz"
+                              for k in range(1, FLEET_EPOCHS)],
+                    f"fleet of {w}: {len(pairs)} pair files")
+            for name in OUTPUTS_4D:
+                require(name == "RegPairFile.txt"
+                        or os.path.exists(os.path.join(out, name)),
+                        f"fleet of {w}: {name} missing")
+            runs[w] = rec
+            smi_s = rec["smi"]
+            log(f"fleet of {w} ({card}): pairs wall "
+                f"{rec['pairs_wall_s']:.3f} s, workers done at "
+                f"{[round(t, 3) for t in rec['per_worker_done_s']]} s, "
+                f"finalise {rec['finalize_wall_s']:.3f} s, "
+                f"{rec['epochs_per_s']:.4f} epochs/s, speedup "
+                f"{rec.get('speedup_vs_1', 1.0):.3f}, efficiency "
+                f"{rec.get('efficiency_pct', 100.0):.1f}%, "
+                f"{rec['threads_per_worker']} threads a worker on "
+                f"{rec['cores']} cores ({rec['devices']}), the workers' "
+                f"CPU {[round(t, 1) for t in rec['worker_cpu_s']]} s, "
+                f"start-up to the worker's entry "
+                f"{[round(t, 2) for t in rec['worker_startup_s']]} s, "
+                f"{rec['host_busy_pct']:.1f}% of the cores; utilization.gpu "
+                f"mean {smi_s['util_mean_pct']}%, memory.used peak "
+                f"{smi_s['mem_peak_mib']} MiB ({smi_s['samples']} samples "
+                f"while the workers ran); launches {rec['launches']}")
+
+        for w, rec in runs.items():
+            for i, (n, plain) in enumerate(zip(rec["launches"],
+                                               rec["plain_on_cuda"])):
+                for name in FLEET_KERNELS:
+                    require(n.get(name, 0) > 0, f"fleet of {w}: worker {i} "
+                            f"launched no {name}")
+                require(not plain, f"fleet of {w}: worker {i} ran plain "
+                        f"versions on the card: {plain}")
+            same = {name: rec["tables"][name] == runs[1]["tables"][name]
+                    for name in scale.FLEET_TABLES}
+            require(all(same.values()), f"fleet of {w}: tables differ from "
+                    f"one worker's: {same}")
+        log(f"fleet: the tables of {FLEET_WORKERS[1:]} workers equal one "
+            f"worker's byte for byte; TransMatrices_toRef.txt {digest}")
+        log(f"fleet: pair residuals against the relative truth: mean of "
+            f"means {residuals[:, 0].mean():.4f} mm, worst mean "
+            f"{residuals[:, 0].max():.4f} mm, worst max "
+            f"{residuals[:, 1].max():.4f} mm (bounds 2 / 5 mm); chained "
+            f"errors mean {errors[:, :3].mean(0).round(3).tolist()} mgon, "
+            f"{errors[:, 3:].mean(0).round(4).tolist()} mm, max "
+            f"{float(errors[:, :3].max())!r} mgon, "
+            f"{float(errors[:, 3:].max())!r} mm; smoothed mean "
+            f"{smoothed[:, :3].mean(0).round(3).tolist()} mgon, "
+            f"{smoothed[:, 3:].mean(0).round(4).tolist()} mm, max "
+            f"{float(smoothed[:, :3].max())!r} mgon, "
+            f"{float(smoothed[:, 3:].max())!r} mm")
+        require(residuals[:, 0].max() < 2.0 and residuals[:, 1].max() < 5.0,
+                "fleet: a pair is outside the truth bounds")
+
+    # the quasi-static campaign, in this process
+    with tempfile.TemporaryDirectory() as tmp:
+        _cuda.reset_counts()
+        t0 = time.perf_counter()
+        rep = scale.run_quasistatic(tmp, QUASI_EPOCHS, base=base,
+                                    device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_cuda.LAUNCHES)
+        plain_on_cuda = dict(_cuda.PLAIN_ON_CUDA)
+        out = pathlib.Path(tmp, "results")
+        raw = formats.read_trans_parameters(
+            out / "TransParameters_toRef.txt")
+        sm = formats.read_trans_parameters(
+            out / "TransParameters_toRef_smoothed.txt")
+        _, gt_q = formats.read_ground_truth_transforms(
+            pathlib.Path(tmp, "defined_transformations.txt"))
+    gt_params = np.stack([matrix_to_params_gon(g) for g in gt_q[1:]])
+    raw_err = np.abs(raw[:, 1:7] - gt_params).mean()
+    sm_err = np.abs(sm[:, 1:7] - gt_params).mean()
+    log(f"quasistatic ({card}): {QUASI_EPOCHS} epochs, direct mode, "
+        f"Kalman, {wall:.3f} s; report {json.dumps(rep)}; independent-"
+        f"component reduction {rep['independent_component_reduction']:.4f} "
+        f"(the JAX package's on the reference scan, another base: "
+        f"{JAX_QUASI_REDUCTION}); mean parameter error raw {raw_err:.6g}, "
+        f"smoothed {sm_err:.6g} (gon and m; bound raw x 1.25 + 1e-4); "
+        f"launches {launches}")
+    require(rep["ok"], "quasistatic: run_4d returned False")
+    require(sm_err <= raw_err * 1.25 + 1e-4, "quasistatic: smoothing "
+            "degraded the mean error")
+    for name in FLEET_KERNELS:
+        require(launches.get(name, 0) > 0, f"quasistatic: no {name}")
+    require(not plain_on_cuda,
+            f"quasistatic: plain versions on the card: {plain_on_cuda}")
+    log(f"fleet phase: {time.perf_counter() - t_phase:.1f} s")
+    return {name: [[n.get(name, 0) for n in runs[w]["launches"]]
+                   for w in FLEET_WORKERS] for name in REPLACES}
+
+
 def profile_run(run, label: str) -> None:
     """``run`` once more under torch.profiler: wall time, host phases, the
     device's busy share and its kernels by time (where the time goes)."""
@@ -2490,7 +2715,7 @@ ONLY_PHASES = {"reproducible": reproducible_phase, "variants": variants_phase,
                "change_screen": change_screen_phase,
                "exports_hooks": exports_hooks_phase, "capi": capi_phase,
                "pair": pair_phase, "sharded": sharded_phase,
-               "rockfall": rockfall_phase}
+               "rockfall": rockfall_phase, "fleet": fleet_phase}
 
 
 def main(argv=None) -> int:
@@ -2569,17 +2794,20 @@ def main(argv=None) -> int:
     capi_phase(args.seed)
     sharded_phase(args.seed)
     launches = four_d_phase(args.seed, kern["nn1_brute"]["ms"])
+    fleet = fleet_phase(args.seed)
     foreign = _foreign_modules()
     require(not foreign, f"JAX or the JAX package was imported: {foreign}")
 
     # each kernel's launches in the campaign and its numbers at the
     # campaign's shapes; "_rockfall": its launches in the rockfall phase and
-    # its numbers at that path's shapes
+    # its numbers at that path's shapes; "launches_fleet": its launches in
+    # each worker of the fleets of 1, 2 and 4
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": int(launches.get(name, 0)), **kern[name],
          **{f"{k}_rockfall": v for k, v in rockfall[name].items()
-            if k != "library_ms"}}
+            if k != "library_ms"},
+         "launches_fleet": fleet[name]}
         for name, (src, rep) in REPLACES.items()]}
     for k in record["kernels"]:
         log(f"{k['name']}: {k['launches']} launches in the campaign, "

@@ -153,6 +153,18 @@ def piecewise_icp_4d_call(confile: str, start_epoch: int, epoch_num: int,
                   device=device, group=group)
 
 
+def _write_whole(path: str, write) -> None:
+    """``write(tmp)`` a temporary file in ``path``'s folder, then rename it
+    to ``path``: another worker of an epoch fleet, which reads a pair file
+    as soon as it exists, sees the whole file or none."""
+    folder, name = os.path.split(path)
+    # hidden, and with the file's own suffix (np.savez appends ".npz" to a
+    # name that lacks it)
+    tmp = os.path.join(folder, f".{os.getpid()}.{name}")
+    write(tmp)
+    os.replace(tmp, path)
+
+
 def _write_param_table(path: str, ts_list, mats, vcms) -> None:
     with open(path, "w") as f:
         f.write(formats.TRANS_PARA_HEADER + "\n")
@@ -221,7 +233,8 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
                     files[:epoch_num], start_epoch, cfg.dt_init,
                     overlap_thd, device=dev)
             if writer:
-                formats.write_reg_pairs(pair_file, reg_pairs)
+                _write_whole(pair_file, lambda f: formats.write_reg_pairs(
+                    f, reg_pairs))
             written()
 
     # ---- per-pair registrations (Registration.cpp:89-187) ----
@@ -325,8 +338,8 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
             tm_list.append(tm)
             vcm_list.append(vcm)
             if writer:
-                np.savez(pair_npz, tm=tm, vcm=vcm, failed=was_failed,
-                         ts=times[i + 1])
+                _write_whole(pair_npz, lambda f: np.savez(
+                    f, tm=tm, vcm=vcm, failed=was_failed, ts=times[i + 1]))
             written()
         for idx, fut in pending.items():    # prepared, never consumed
             try:

@@ -24,6 +24,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import pathlib
@@ -118,14 +119,26 @@ def library_path() -> pathlib.Path:
 
 
 def build() -> pathlib.Path:
-    """Compile the kernel library unless an up-to-date build exists."""
-    global build_seconds, build_log
-    import time
+    """Compile the kernel library unless an up-to-date build exists.
 
+    Processes that start together (the workers of an epoch fleet) take an
+    exclusive lock on ``_build/<hash>.lock`` and look again under it, so
+    one compiles and the others load its library."""
     out = library_path()
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
+    with open(out.parent.with_suffix(".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if out.exists():
+            return out
+        return _compile(out)
+
+
+def _compile(out: pathlib.Path) -> pathlib.Path:
+    global build_seconds, build_log
+    import time
+
     nvcc = _nvcc()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=out.parent) as tmp:

@@ -51,6 +51,7 @@ def test_port_runs_with_the_jax_package_blocked():
         assert "piecewise_icp_torch.__main__" in names, names
         assert "piecewise_icp_torch.io.formats" in names, names
         assert "piecewise_icp_torch.parallel.distributed" in names, names
+        assert "piecewise_icp_torch.utils.scale" in names, names
         for name in names:
             importlib.import_module(name)
         from piecewise_icp_torch.utils.synth import make_pair
