@@ -29,7 +29,12 @@ two entry points on the card:
    screen on; with ``isVisual: 1`` (the four colored PCDs), under
    ``PWICP_PROFILE_DIR`` (a trace) and ``PWICP_NO_UNIFIED=1`` (the staged
    path at full width); and through the C ABI
-   (``PiecewiseICP_pair_call`` by ctypes);
+   (``PiecewiseICP_pair_call`` by ctypes); then the pairs and a 3-epoch
+   campaign point-sharded over ranks (``parallel``: NCCL at 2 and 4 ranks,
+   one card a rank, where four cards are visible; 2 gloo ranks sharing
+   the one card otherwise), the multi-controller demo (2 host launchers
+   meeting at ``tcp://127.0.0.1``) and, on four cards, the CLIs with
+   ``--mesh-devices 4``;
 4. a 20-epoch 4D campaign of 142,884-point epochs drifting 2 cm a step
    through ``piecewise_icp_torch.piecewise_icp_4d_call(...,
    device="cuda")`` in adaptive mode (the plan advances its target) with
@@ -1898,16 +1903,48 @@ def _pair_report(res, timer_records) -> dict:
                          if r["phase"] == "core.stage1_rescue"])
 
 
-def _sharded_rank(group, t_launch, c1, c2, mis, conf_4d, reps):
-    """One rank of the sharded phase: the smoke pair (cold, counted; then
-    ``reps`` warm, timed, each with the collectives it made), the
-    misaligned pair, and the campaign; every rank's report comes back
-    through rank 0."""
+def _profiled(run) -> dict:
+    """``run()`` once under torch.profiler: its wall, the device's busy
+    time (kernel and copy rows), the NCCL kernels' time and launches, and
+    each of the port's kernels (time, launches) by name."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = [e for e in prof.key_averages()
+            if getattr(e, "self_device_time_total", 0) > 0
+            and e.device_type != DeviceType.CPU]
+    nccl = [e for e in rows if "nccl" in e.key.lower()]
+    return dict(wall_ms=wall * 1e3,
+                busy_ms=sum(e.self_device_time_total for e in rows) / 1e3,
+                nccl_ms=sum(e.self_device_time_total for e in nccl) / 1e3,
+                nccl_launches=sum(e.count for e in nccl),
+                kernels={e.key.split("(")[0]: (e.self_device_time_total
+                                               / 1e3, e.count)
+                         for e in rows if e.key.startswith("pwicp::")})
+
+
+def _sharded_rank(group, t_launch, c1, c2, mis, conf_4d, conf_pair,
+                  pair_prefix, reps):
+    """One rank of a sharded launch: the smoke pair (cold, counted; then
+    ``reps`` warm, each started after a barrier and timed to a
+    synchronize of this rank's card, with the collectives it made), the
+    misaligned pair (then ``reps`` warm), one of each profiled, the demo's
+    staged loop on the raw smoke pair, the pair call from PCD files, and
+    the campaign; every rank's report comes back through rank 0."""
     import torch
 
     import piecewise_icp_torch as pwt
     from piecewise_icp_torch.models.pairwise import register_pair
     from piecewise_icp_torch.ops import _cuda
+    from piecewise_icp_torch.parallel.demo import register_on_ranks
+    from piecewise_icp_torch.parallel.distributed import context_devices
     from piecewise_icp_torch.utils.logging import GLOBAL_TIMER
 
     started_s = time.time() - t_launch
@@ -1920,30 +1957,44 @@ def _sharded_rank(group, t_launch, c1, c2, mis, conf_4d, reps):
         torch.cuda.synchronize()
         return _pair_report(res, GLOBAL_TIMER.records)
 
+    def warm(cloud1, cloud2, first):
+        times, differ = [], 0
+        for _ in range(reps):
+            group.barrier()
+            calls, sent = collections.Counter(group.calls), \
+                collections.Counter(group.bytes)
+            t0 = time.perf_counter()
+            again = pair(cloud1, cloud2)
+            times.append(time.perf_counter() - t0)
+            differ += bit_diff(again["trans_mat"], first["trans_mat"]) \
+                + bit_diff(again["vcm"], first["vcm"])
+        return times, differ, dict(
+            calls=dict(collections.Counter(group.calls) - calls),
+            bytes=dict(collections.Counter(group.bytes) - sent))
+
     _cuda.reset_counts()
     first = pair(c1, c2)
     out = dict(rank=group.rank, device=str(dev), started_s=started_s,
                launches=dict(_cuda.LAUNCHES),
                plain_on_cuda=dict(_cuda.PLAIN_ON_CUDA), pair=first)
-    warm, differ = [], 0
-    for _ in range(reps):
-        group.barrier()
-        calls, sent = collections.Counter(group.calls), \
-            collections.Counter(group.bytes)
-        t0 = time.perf_counter()
-        again = pair(c1, c2)
-        warm.append(time.perf_counter() - t0)
-        differ += bit_diff(again["trans_mat"], first["trans_mat"]) \
-            + bit_diff(again["vcm"], first["vcm"])
-    out.update(warm=warm, warm_bits_differ=differ,
-               pair_calls=dict(collections.Counter(group.calls) - calls),
-               pair_bytes=dict(collections.Counter(group.bytes) - sent))
+    out["warm"], out["warm_bits_differ"], out["pair_collectives"] = \
+        warm(c1, c2, first)
     out["mis"] = pair(*mis)
+    out["warm_mis"], differ, _ = warm(*mis, out["mis"])
+    out["warm_bits_differ"] += differ
+    group.barrier()
+    out["profile"] = _profiled(lambda: pair(c1, c2))
+    group.barrier()
+    out["profile_mis"] = _profiled(lambda: pair(*mis))
+    out["core"] = register_on_ranks(group, c1, c2, cfg, t_launch)
+    out["pair_call"] = pwt.piecewise_icp_pair_call(
+        conf_pair, pair_prefix, device=dev, group=group)
     writes = _counting_writes()
     out["campaign_ok"] = pwt.piecewise_icp_4d_call(
         conf_4d, 0, SHARD_EPOCHS, -1, device=dev, group=group,
         kalman_enabled=True)
-    out.update(writes=writes, foreign=_foreign_modules())
+    out.update(writes=writes, contexts=context_devices(),
+               foreign=_foreign_modules())
     return group.gather_object(out)
 
 
@@ -1953,14 +2004,15 @@ def _repeat_rank(group, t_launch, c1, c2):
 
     import piecewise_icp_torch as pwt
     from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.parallel.distributed import context_devices
 
     started_s = time.time() - t_launch
     res = register_pair(c1, c2, pwt.PiecewiseICPConfig(), device=group.device,
                         group=group)
     torch.cuda.synchronize()
-    return group.gather_object(dict(started_s=started_s,
-                                    trans_mat=res.trans_mat, vcm=res.vcm,
-                                    foreign=_foreign_modules()))
+    return group.gather_object(dict(started_s=started_s, device=str(
+        group.device), trans_mat=res.trans_mat, vcm=res.vcm,
+        contexts=context_devices(), foreign=_foreign_modules()))
 
 
 def _within(label: str, got: dict, want: dict,
@@ -1988,24 +2040,248 @@ def _within(label: str, got: dict, want: dict,
                                atol=1e-14)
 
 
+class AppsSampler:
+    """``nvidia-smi --query-compute-apps=pid,gpu_bus_id,used_memory`` and
+    each card's ``memory.used`` about every 0.5 s while the ``with`` block
+    runs (the processes that hold a context, and where)."""
+
+    def __enter__(self):
+        self.apps, self.mem, self.done = [], {}, threading.Event()
+        self.thread = threading.Thread(target=self._poll, daemon=True)
+        self.thread.start()
+        return self
+
+    def _poll(self) -> None:
+        while not self.done.wait(0.5):
+            apps = subprocess.run(
+                ["nvidia-smi", "--query-compute-apps=pid,gpu_bus_id,"
+                 "used_memory", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60).stdout
+            self.apps.append([r.strip() for r in apps.splitlines()
+                              if r.strip()])
+            for row in smi_query("index,memory.used").splitlines():
+                i, mem = (v.strip() for v in row.split(","))
+                self.mem[i] = max(self.mem.get(i, "0 MiB"), mem,
+                                  key=lambda m: float(m.split()[0]))
+
+    def __exit__(self, *exc) -> None:
+        self.done.set()
+        self.thread.join(timeout=120)
+
+    def summary(self) -> str:
+        most = max(self.apps, key=len, default=[])
+        return (f"{len(self.apps)} samples; at most {len(most)} processes "
+                f"held a context at once ({most}); memory.used peak by card "
+                f"{self.mem}")
+
+
+def _secs(xs) -> str:
+    return ", ".join(f"{x:.3f}" for x in xs)
+
+
+def _warm_median(reports, key: str):
+    """The time of each warm repeat over the ranks (the slowest rank's:
+    each ends in a synchronize of its own card), and their median."""
+    per_rep = [max(r[key][i] for r in reports)
+               for i in range(len(reports[0][key]))]
+    return statistics.median(per_rep), per_rep
+
+
+def _sharded_run(nproc: int, backend: str, ctx: dict) -> dict:
+    """Two launches of ``nproc`` ranks (``_sharded_rank``, then
+    ``_repeat_rank``) and every check of the sharded phase on them."""
+    from piecewise_icp_torch.io import formats
+    from piecewise_icp_torch.parallel import launch
+
+    label = (f"{nproc} {backend} ranks sharing one card (not a scaling "
+             f"number)" if backend == "gloo" else f"{nproc} nccl ranks")
+    tag = f"sharded, {nproc} {backend} ranks"
+    c1, c2, mis, tmp = ctx["c1"], ctx["c2"], ctx["mis"], ctx["tmp"]
+    out_dir = tmp / f"ranks{nproc}"
+    conf = str(tmp / f"ranks{nproc}.txt")
+    _campaign_config(ctx["scans"], out_dir).to_reference_file(conf)
+    t_launch = time.time()
+    t0 = time.perf_counter()
+    with AppsSampler() as apps:
+        reports = launch(_sharded_rank, nproc, t_launch, c1, c2, mis, conf,
+                         ctx["conf_pair"], str(tmp / f"pair{nproc}_"), 3,
+                         device="cuda", backend=backend, timeout=900)
+    launch_a_s = time.perf_counter() - t0
+    log(f"{tag}: nvidia-smi while the ranks ran: {apps.summary()}")
+    errors = formats.read_abs_errors(out_dir / "TransPara_AbsError.txt")
+    written = sorted(p.name for p in out_dir.iterdir())
+    t_launch = time.time()
+    t0 = time.perf_counter()
+    again = launch(_repeat_rank, nproc, t_launch, c1, c2, device="cuda",
+                   backend=backend, timeout=600)
+    launch_b_s = time.perf_counter() - t0
+
+    root, single, single_mis = reports[0], ctx["single"], ctx["single_mis"]
+    for r in reports + again:
+        require(not r["foreign"], f"{tag}: a rank imported {r['foreign']}")
+        own = [int(r["device"].split(":")[1])]
+        require(r["contexts"] == own, f"{tag}: a rank on {r['device']} holds "
+                f"CUDA contexts on cards {r['contexts']}")
+    for r in reports:
+        require(not r["plain_on_cuda"], f"{tag}: rank {r['rank']} ran plain "
+                f"versions on CUDA tensors: {r['plain_on_cuda']}")
+        for name in PAIR_KERNELS:
+            require(r["launches"].get(name, 0) > 0, f"{tag}: kernel {name} "
+                    f"was not launched in rank {r['rank']}")
+        log(f"{tag}: rank {r['rank']} on {r['device']} (CUDA contexts on "
+            f"cards {r['contexts']} only): launches of the cold pair "
+            f"{r['launches']}; plain versions on CUDA: none; no module of "
+            f"jax, jaxlib or piecewise_icp_tpu loaded")
+    bits = [bit_diff(r["pair"]["trans_mat"], root["pair"]["trans_mat"])
+            for r in reports] + [
+        bit_diff(r[k], root["pair"][k]) for k in ("trans_mat", "vcm")
+        for r in again]
+    core_bits = [bit_diff(np.asarray(r["trans_mat"]),
+                          root["core"]["trans_mat"])
+                 for r in root["core"]["ranks"]]
+    log(f"{tag}: elements whose bits differ from rank 0's first transform: "
+        f"{bits[:nproc]} (ranks, first launch), {bits[nproc:2 * nproc]} "
+        f"(ranks, second launch; the VCM {bits[2 * nproc:]}); the warm "
+        f"repeats of every rank differ in "
+        f"{[r['warm_bits_differ'] for r in reports]}; the staged loop on the "
+        f"raw pair: {core_bits}")
+    require(not any(bits) and not any(core_bits)
+            and not any(r["warm_bits_differ"] for r in reports),
+            f"{tag}: the ranks or two launches gave other bits")
+    _within(f"{nproc} ranks, smoke pair", root["pair"], single)
+    _within(f"{nproc} ranks, staged loop on the raw smoke pair",
+            root["core"], ctx["single_core"])
+    mean, mx = truth_mm(root["pair"]["trans_mat"], ctx["t_true"], c2)
+    log(f"{tag}, smoke pair: residual vs truth mean {mean:.4f} mm, max "
+        f"{mx:.4f} mm (bounds 2 mm / 5 mm)")
+    require(mean < 2.0 and mx < 5.0, f"{tag}: outside the truth bounds")
+
+    rescued = {r["rank"]: r["mis"]["rescued"] for r in reports}
+    log(f"{tag}, misaligned pair ({len(mis[0])} points an epoch, source "
+        f"raised {MISALIGN_M} m): queries rescued by K5 a stage-1 call, by "
+        f"rank {rescued} (budget {N_RESCUE} a shard); exact-percentile "
+        f"fallbacks (through the gather) {root['mis']['exact']}, on one "
+        f"device {single_mis['exact']} (rescues {single_mis['rescued']})")
+    require(any(N_RESCUE in q for q in rescued.values()),
+            f"{tag}: no shard had more unresolved queries than the budget")
+    require(root["mis"]["exact"] > 0,
+            f"{tag}: the exact percentile did not run through the gather")
+    # the first DT is the exact percentile's; past the first iteration,
+    # which removes the offset, the stage-2 decay may divide box changes
+    # at float32 noise, so the iterations are reported, not held
+    log(f"{tag}, misaligned pair: DT series {root['mis']['dt'][:3]}, on "
+        f"one device {single_mis['dt'][:3]}")
+    np.testing.assert_allclose(root["mis"]["dt"][:2], single_mis["dt"][:2],
+                               rtol=1e-5)
+    _within(f"{nproc} ranks, misaligned pair", root["mis"], single_mis,
+            same_iterations=False)
+    mean, mx = truth_mm(root["mis"]["trans_mat"], ctx["t_mis"], mis[1])
+    log(f"{tag}, misaligned pair: residual vs truth mean {mean:.4f} mm, "
+        f"max {mx:.4f} mm")
+    require(mean < 2.0 and mx < 5.0,
+            f"{tag}: misaligned pair outside the truth bounds")
+
+    require(root["pair_call"], f"{tag}: the pair call returned False")
+    require(all(r["campaign_ok"] for r in reports),
+            f"{tag}: the campaign returned False on a rank")
+    writes = [r["writes"] for r in reports]
+    want = dict(write_trans_matrix_report=SHARD_EPOCHS - 1,
+                write_trans_matrices=3, write_abs_errors=2,
+                write_reg_pairs=1, savez=SHARD_EPOCHS - 1)
+    log(f"{tag}, {SHARD_EPOCHS}-epoch campaign: writes by rank {writes}; "
+        f"files {written}")
+    require(writes[0] == want and not any(writes[1:]),
+            f"{tag}: the campaign's files were not each written once by "
+            f"rank 0 ({want})")
+    d_e = np.abs(errors - ctx["errors_one"])
+    log(f"{tag}, campaign: chained errors against the one-device campaign:"
+        f" {d_e[:, :3].max():.6f} mgon, {d_e[:, 3:].max():.7f} mm (bounds "
+        f"{SHARD_MGON} / {SHARD_MM}); max error {errors[:, :3].max():.4f} "
+        f"mgon, {errors[:, 3:].max():.5f} mm")
+    require(d_e[:, :3].max() < SHARD_MGON and d_e[:, 3:].max() < SHARD_MM,
+            f"{tag}: campaign outside the mesh tolerance")
+
+    coll = root["pair_collectives"]
+    log(f"{tag}: collectives of one warm pair on rank 0: calls "
+        f"{coll['calls']}; bytes of their results {coll['bytes']} "
+        f"({sum(coll['bytes'].values())} in all); outer iterations "
+        f"{root['pair']['iterations']}")
+    smi = ctx["smi"]
+    for key, what in (("warm", "smoke pair"), ("warm_mis", "misaligned "
+                                               "pair")):
+        med, per_rep = _warm_median(reports, key)
+        log(f"{tag}: warm {what}, median of 3 (the slowest rank's time a "
+            f"repeat): one device {statistics.median(ctx[key]):.3f} s "
+            f"({_secs(ctx[key])}); {label} {med:.3f} s ({_secs(per_rep)}); "
+            f"{smi}")
+    for key, what in (("profile", "smoke pair"), ("profile_mis",
+                                                  "misaligned pair")):
+        for r in reports:
+            p = r[key]
+            rest = p["busy_ms"] - p["nccl_ms"]
+            log(f"{tag}: profiled warm {what}, rank {r['rank']}: "
+                f"{p['wall_ms']:.1f} ms wall, device busy {p['busy_ms']:.1f} "
+                f"ms ({100 * p['busy_ms'] / p['wall_ms']:.1f}%), NCCL kernels "
+                f"{p['nccl_ms']:.3f} ms in {p['nccl_launches']} launches (a "
+                f"collective's kernel runs until every rank has joined it); "
+                f"the rest {rest:.1f} ms ({100 * rest / p['wall_ms']:.1f}%)")
+        one = ctx[key]
+        log(f"{tag}: profiled warm {what}, one device: {one['wall_ms']:.1f} "
+            f"ms wall, device busy {one['busy_ms']:.1f} ms "
+            f"({100 * one['busy_ms'] / one['wall_ms']:.1f}%)")
+        for name, (ms, n) in sorted(reports[0][key]["kernels"].items()):
+            ms1, n1 = one["kernels"].get(name, (0.0, 0))
+            log(f"{tag}: {what}, {name}: rank 0 {1e3 * ms / n:.1f} us a "
+                f"launch x{n}; one device "
+                + (f"{1e3 * ms1 / n1:.1f} us a launch x{n1}" if n1 else
+                   "not launched"))
+    starts = [r["started_s"] for r in reports + again]
+    log(f"{tag}: rank start-up (launch to the rank's first line: spawn, "
+        f"imports, process group) {_secs(starts)} s; launches "
+        f"{launch_a_s:.2f} s (pairs, profiles and campaign) and "
+        f"{launch_b_s:.2f} s (one pair); {smi}")
+    tables = {p.name: p.read_bytes() for p in out_dir.glob("*.txt")}
+    return dict(core=root["core"], tables=tables,
+                pair_report=pathlib.Path(
+                    str(tmp / f"pair{nproc}_") + "TransMatrix.txt"
+                ).read_bytes())
+
+
+def _campaign_config(scans, out_dir):
+    """The sharded phase's campaign configuration (auto DT-init)."""
+    import piecewise_icp_torch as pwt
+
+    return pwt.PiecewiseICPConfig(path1=str(scans), path2=str(out_dir) + "/",
+                                  set_dtinit=False)
+
+
 def sharded_phase(seed: int) -> None:
-    """The staged loop point-sharded over a process group (``parallel``):
-    NCCL over min(count, 4) ranks where two cards or more are visible,
-    else gloo with 2 ranks on ``cuda:0``.  The smoke pair on the ranks
-    against one device in this process (mesh tolerances, truth bounds,
-    every rank's transform bit-equal, K1-K4 launched in every rank, no
-    plain version on a CUDA tensor, no JAX module), twice (bit-equal); a
-    misaligned pair (the per-shard rescue and the exact percentile through
-    the gather); a 3-epoch campaign (every table written once, chained
-    errors against one device); warm times, the collectives of a pair and
-    their bytes, the ranks' start-up."""
+    """The staged loop point-sharded over a process group (``parallel``).
+    Where two cards or more are visible: NCCL, one card a rank, at 2 and
+    at min(count, 4) ranks; else gloo with 2 ranks on ``cuda:0``.  At each
+    rank count: the smoke pair against one device in this process (mesh
+    tolerances, truth bounds, every rank's transform and a second launch
+    bit-equal, K1-K4 launched in every rank, no plain version on a CUDA
+    tensor, no JAX module, each rank's CUDA contexts on its own card
+    alone); a misaligned pair (the per-shard rescue and the exact
+    percentile through the gather); a 3-epoch campaign (every table
+    written once, chained errors against one device); warm times, the
+    collectives of a pair (calls, bytes, NCCL kernel time), each rank's
+    busy share and kernels, the ranks' start-up.  Then the multi-controller
+    demo (``parallel.demo``: 2 host launchers over ``tcp://127.0.0.1``, of
+    min(count, 4) // 2 NCCL ranks each, or 1 gloo rank each on one card):
+    bit-equal to the single-host launch of as many ranks.  Where four
+    cards are visible, the ``pair`` and ``4d`` CLIs with ``--mesh-devices
+    4`` write the bytes of the in-process launch."""
     import torch
+    import torch.distributed as dist
 
     import piecewise_icp_torch as pwt
     from piecewise_icp_torch.io import formats, write_pcd
     from piecewise_icp_torch.models.pairwise import register_pair
+    from piecewise_icp_torch.models.piecewise_icp import piecewise_icp
     from piecewise_icp_torch.ops.transform import translation_matrix
-    from piecewise_icp_torch.parallel import launch
+    from piecewise_icp_torch.parallel import demo
     from piecewise_icp_torch.utils.logging import GLOBAL_TIMER
     from piecewise_icp_torch.utils.synth import make_pair, make_series, \
         write_ground_truth
@@ -2014,16 +2290,17 @@ def sharded_phase(seed: int) -> None:
     smi = nvidia_smi_line()
     count = torch.cuda.device_count()
     if count >= 2:
-        backend, nproc = "nccl", min(count, 4)
-        where = f"one card a rank, cuda:0..{nproc - 1}"
+        backend, plan = "nccl", sorted({2, min(count, 4)})
+        hosts, per_host = 2, min(count, 4) // 2
+        where = "one card a rank"
     else:
-        backend, nproc = "gloo", 2
+        backend, plan, hosts, per_host = "gloo", [2], 2, 1
         where = ("both on cuda:0; NCCL not run: torch.cuda.device_count() "
                  "is 1, and NCCL takes one card a rank")
-    log(f"sharded: torch.cuda.device_count() {count}; backend {backend}, "
-        f"{nproc} ranks ({where})")
-    label = (f"{nproc} {backend} ranks sharing one card (not a scaling "
-             f"number)" if backend == "gloo" else f"{nproc} nccl ranks")
+    log(f"sharded: torch.cuda.device_count() {count}; backend {backend} "
+        f"(NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}, "
+        f"available {dist.is_nccl_available()}), ranks {plan} ({where}); "
+        f"demo {hosts} hosts x {per_host}")
 
     c1, c2, t_true = smoke_pair(seed)
     m1, m2, t_mis = make_pair(np.random.default_rng(seed + 5), PARAMS,
@@ -2038,139 +2315,119 @@ def sharded_phase(seed: int) -> None:
         torch.cuda.synchronize()
         return _pair_report(res, GLOBAL_TIMER.records)
 
-    single = one_device(c1, c2)
-    warm1 = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        one_device(c1, c2)
-        warm1.append(time.perf_counter() - t0)
-    single_mis = one_device(*mis)
+    def warm(cloud1, cloud2):
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            one_device(cloud1, cloud2)
+            times.append(time.perf_counter() - t0)
+        return times
+
+    ctx = dict(c1=c1, c2=c2, t_true=t_true, mis=mis, t_mis=t_mis, smi=smi)
+    ctx["single"] = one_device(c1, c2)
+    ctx["warm"] = warm(c1, c2)
+    ctx["single_mis"] = one_device(*mis)
+    ctx["warm_mis"] = warm(*mis)
+    ctx["profile"] = _profiled(lambda: one_device(c1, c2))
+    ctx["profile_mis"] = _profiled(lambda: one_device(*mis))
+    res = piecewise_icp(c1, c2, cfg.res1, cfg.res2, cfg)
+    ctx["single_core"] = dict(trans_mat=res.trans_mat, vcm=res.vcm,
+                              iterations=res.iterations)
 
     epochs, gt = make_series(np.random.default_rng(seed + 2), SHARD_EPOCHS,
                              trend=TREND_4D, n_side=N_SIDE, extent=EXTENT)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
-        scans = tmp / "scans"
+        ctx["tmp"] = tmp
+        scans = ctx["scans"] = tmp / "scans"
         scans.mkdir()
         for k, e in enumerate(epochs):
             write_pcd(scans / f"Epoch_{k + 1:03d}.pcd", e)
         write_ground_truth(tmp / "defined_transformations.txt", gt)
-        confs = {}
-        for name in ("one", "ranks"):
-            pwt.PiecewiseICPConfig(
-                path1=str(scans), path2=str(tmp / name) + "/",
-                set_dtinit=False).to_reference_file(tmp / f"{name}.txt")
-            confs[name] = str(tmp / f"{name}.txt")
-        require(pwt.piecewise_icp_4d_call(confs["one"], 0, SHARD_EPOCHS, -1,
+        write_pcd(tmp / "pair_1.pcd", c1)
+        write_pcd(tmp / "pair_2.pcd", c2)
+        ctx["conf_pair"] = str(tmp / "pair.txt")
+        pwt.PiecewiseICPConfig(path1=str(tmp / "pair_1.pcd"),
+                               path2=str(tmp / "pair_2.pcd")
+                               ).to_reference_file(ctx["conf_pair"])
+        _campaign_config(scans, tmp / "one").to_reference_file(
+            tmp / "one.txt")
+        require(pwt.piecewise_icp_4d_call(str(tmp / "one.txt"), 0,
+                                          SHARD_EPOCHS, -1,
                                           kalman_enabled=True),
                 "sharded: the one-device campaign returned False")
+        ctx["errors_one"] = formats.read_abs_errors(
+            tmp / "one" / "TransPara_AbsError.txt")
+        runs = {n: _sharded_run(n, backend, ctx) for n in plan}
 
-        t_launch = time.time()
-        t0 = time.perf_counter()
-        reports = launch(_sharded_rank, nproc, t_launch, c1, c2, mis,
-                         confs["ranks"], 3, device="cuda", backend=backend,
-                         timeout=900)
-        launch_a_s = time.perf_counter() - t0
-        errors = {name: formats.read_abs_errors(
-            tmp / name / "TransPara_AbsError.txt") for name in confs}
-        written = sorted(p.name for p in (tmp / "ranks").iterdir())
-    t_launch = time.time()
+        world = hosts * per_host
+        report = demo.run(c1, c2, t_true, cfg, hosts=hosts, nproc=per_host,
+                          device="cuda", backend=backend, timeout=600)
+        w0 = report["workers"][0]
+        tag = f"sharded, demo of {hosts} hosts x {per_host} {backend} ranks"
+        for w in report["workers"]:
+            log(f"{tag}: host {w['process_id']}: ranks "
+                + "; ".join(f"{r['rank']} on {r['device']} (contexts on "
+                            f"{r['contexts']}, started at {r['started_s']:.3f}"
+                            f" s)" for r in w["ranks"] if
+                            r["rank"] // per_host == w["process_id"])
+                + f"; pair {w['seconds']:.3f} s (cold), {w['iterations']} "
+                f"iterations, residual mean {w['mean_residual_mm']:.4f} mm, "
+                f"max {w['max_residual_mm']:.4f} mm")
+        demo_bits = [bit_diff(np.asarray(w["trans_mat"]),
+                              runs[world]["core"]["trans_mat"])
+                     for w in report["workers"]]
+        log(f"{tag}: over {report['address']}, ok {report['ok']}, "
+            f"cross-host transform difference "
+            f"{report['cross_process_param_diff']}; elements whose bits "
+            f"differ from the single-host launch of {world} ranks "
+            f"{demo_bits}; wall {report['wall_s']:.2f} s; {smi}")
+        require(report["ok"], f"{tag}: the report is not ok")
+        require(not any(demo_bits), f"{tag}: other bits than one host of "
+                f"{world} ranks")
+        _within(f"demo of {hosts} x {per_host}",
+                dict(trans_mat=np.asarray(w0["trans_mat"]),
+                     vcm=np.asarray(w0["vcm"]),
+                     iterations=w0["iterations"]), ctx["single_core"])
+
+        if count >= 4:
+            cli_phase(tmp, runs[4], scans)
+        else:
+            log("sharded: the CLIs with --mesh-devices 4 not run: "
+                f"{count} card(s) visible")
+    log(f"sharded: phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+
+
+def cli_phase(tmp: pathlib.Path, run4: dict, scans: pathlib.Path) -> None:
+    """``python -m piecewise_icp_torch pair ... --mesh-devices 4`` and
+    ``4d ... --mesh-devices 4``, both at once: their report and tables
+    must be the bytes of the in-process launch of 4 ranks."""
+    _campaign_config(scans, tmp / "cli").to_reference_file(tmp / "cli.txt")
+    cmds = {"pair": ["pair", "--config", str(tmp / "pair.txt"), "--out",
+                     str(tmp / "cli_pair_")],
+            "4d": ["4d", "--config", str(tmp / "cli.txt"), "--epochs",
+                   str(SHARD_EPOCHS), "--mode", "-1", "--kalman"]}
     t0 = time.perf_counter()
-    again = launch(_repeat_rank, nproc, t_launch, c1, c2, device="cuda",
-                   backend=backend, timeout=600)
-    launch_b_s = time.perf_counter() - t0
-
-    root = reports[0]
-    for r in reports + again:
-        require(not r["foreign"], f"sharded: a rank imported {r['foreign']}")
-    for r in reports:
-        require(not r["plain_on_cuda"], f"sharded: rank {r['rank']} ran plain "
-                f"versions on CUDA tensors: {r['plain_on_cuda']}")
-        for name in PAIR_KERNELS:
-            require(r["launches"].get(name, 0) > 0, f"sharded: kernel {name} "
-                    f"was not launched in rank {r['rank']}")
-        log(f"sharded: rank {r['rank']} on {r['device']}: launches of the "
-            f"cold pair {r['launches']}; plain versions on CUDA: none; no "
-            f"module of jax, jaxlib or piecewise_icp_tpu loaded")
-    bits = [bit_diff(r["pair"]["trans_mat"], root["pair"]["trans_mat"])
-            for r in reports] + [
-        bit_diff(r[k], root["pair"][k]) for k in ("trans_mat", "vcm")
-        for r in again]
-    log(f"sharded: elements whose bits differ from rank 0's first transform:"
-        f" {bits[:nproc]} (ranks, first launch), {bits[nproc:2 * nproc]} "
-        f"(ranks, second launch; the VCM {bits[2 * nproc:]}); the 3 warm "
-        f"repeats of rank 0 differ in {root['warm_bits_differ']}")
-    require(not any(bits) and not root["warm_bits_differ"],
-            "sharded: the ranks or two launches gave other bits")
-    _within("smoke pair", root["pair"], single)
-    mean, mx = truth_mm(root["pair"]["trans_mat"], t_true, c2)
-    log(f"sharded, smoke pair: residual vs truth mean {mean:.4f} mm, max "
-        f"{mx:.4f} mm (bounds 2 mm / 5 mm)")
-    require(mean < 2.0 and mx < 5.0, "sharded: outside the truth bounds")
-
-    rescued = {r["rank"]: r["mis"]["rescued"] for r in reports}
-    log(f"sharded, misaligned pair ({len(m1)} points an epoch, source "
-        f"raised {MISALIGN_M} m): "
-        f"queries rescued by K5 a stage-1 call, by rank {rescued} (budget "
-        f"{N_RESCUE} a shard); exact-percentile fallbacks (through the "
-        f"gather) {root['mis']['exact']}, on one device "
-        f"{single_mis['exact']} (rescues {single_mis['rescued']})")
-    require(any(N_RESCUE in q for q in rescued.values()),
-            "sharded: no shard had more unresolved queries than the budget")
-    require(root["mis"]["exact"] > 0,
-            "sharded: the exact percentile did not run through the gather")
-    # the first DT is the exact percentile's; past the first iteration,
-    # which removes the offset, the stage-2 decay may divide box changes
-    # at float32 noise, so the iterations are reported, not held
-    log(f"sharded, misaligned pair: DT series {root['mis']['dt'][:3]}, on "
-        f"one device {single_mis['dt'][:3]}")
-    np.testing.assert_allclose(root["mis"]["dt"][:2], single_mis["dt"][:2],
-                               rtol=1e-5)
-    _within("misaligned pair", root["mis"], single_mis,
-            same_iterations=False)
-    mean, mx = truth_mm(root["mis"]["trans_mat"], t_mis, mis[1])
-    log(f"sharded, misaligned pair: residual vs truth mean {mean:.4f} mm, "
-        f"max {mx:.4f} mm")
-    require(mean < 2.0 and mx < 5.0,
-            "sharded: misaligned pair outside the truth bounds")
-
-    require(all(r["campaign_ok"] for r in reports),
-            "sharded: the campaign returned False on a rank")
-    writes = [r["writes"] for r in reports]
-    want = dict(write_trans_matrix_report=SHARD_EPOCHS - 1,
-                write_trans_matrices=3, write_abs_errors=2,
-                write_reg_pairs=1, savez=SHARD_EPOCHS - 1)
-    log(f"sharded, {SHARD_EPOCHS}-epoch campaign: writes by rank {writes}; "
-        f"files {written}")
-    require(writes[0] == want and not any(writes[1:]),
-            f"sharded: the campaign's files were not each written once by "
-            f"rank 0 ({want})")
-    d_e = np.abs(errors["ranks"] - errors["one"])
-    e_r = errors["ranks"]
-    log(f"sharded, campaign: chained errors against the one-device campaign:"
-        f" {d_e[:, :3].max():.6f} mgon, {d_e[:, 3:].max():.7f} mm (bounds "
-        f"{SHARD_MGON} / {SHARD_MM}); max error {e_r[:, :3].max():.4f} mgon,"
-        f" {e_r[:, 3:].max():.5f} mm")
-    require(d_e[:, :3].max() < SHARD_MGON and d_e[:, 3:].max() < SHARD_MM,
-            "sharded: campaign outside the mesh tolerance")
-
-    calls, sent = root["pair_calls"], root["pair_bytes"]
-    log(f"sharded: collectives of one warm pair on rank 0: calls {calls}; "
-        f"bytes of their results {sent} ({sum(sent.values())} in all); outer "
-        f"iterations {root['pair']['iterations']}")
-    starts = [r["started_s"] for r in reports + again]
-
-    def secs(xs):
-        return ", ".join(f"{x:.3f}" for x in xs)
-
-    log(f"sharded: warm pair, median of 3: one device "
-        f"{statistics.median(warm1):.3f} s ({secs(warm1)}); {label} "
-        f"{statistics.median(root['warm']):.3f} s ({secs(root['warm'])}); "
-        f"{smi}")
-    log(f"sharded: rank start-up (launch to the rank's first line: spawn, "
-        f"imports, process group) {secs(starts)} s; launches "
-        f"{launch_a_s:.2f} s (pairs and campaign) and {launch_b_s:.2f} s "
-        f"(one pair); phase {time.perf_counter() - t_phase:.1f} s; {smi}")
+    procs = {k: subprocess.Popen(
+        [sys.executable, "-m", "piecewise_icp_torch", *v, "--mesh-devices",
+         "4"], cwd=pathlib.Path(__file__).resolve().parent,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for k, v in cmds.items()}
+    outs = {k: p.communicate(timeout=600)[0] for k, p in procs.items()}
+    wall = time.perf_counter() - t0
+    for k, p in procs.items():
+        require(p.returncode == 0, f"sharded, CLI {k} --mesh-devices 4 "
+                f"exited {p.returncode}:\n{outs[k][-3000:]}")
+    same_pair = (tmp / "cli_pair_TransMatrix.txt").read_bytes() \
+        == run4["pair_report"]
+    tables = {p.name: p.read_bytes() for p in (tmp / "cli").glob("*.txt")}
+    differ = sorted(n for n in set(tables) | set(run4["tables"])
+                    if tables.get(n) != run4["tables"].get(n))
+    log(f"sharded, CLIs with --mesh-devices 4 (both at once, {wall:.1f} s): "
+        f"pair report byte-equal to the in-process launch's {same_pair}; "
+        f"4d: {len(tables)} tables, those that differ {differ}")
+    require(same_pair and not differ and len(tables) >= 9,
+            "sharded: the CLIs wrote other bytes than the in-process launch")
 
 
 def four_d_phase(seed: int, k5_ms: float) -> dict:
