@@ -53,7 +53,11 @@ two entry points on the card:
    the card (``run_fleet``; the tables of every fleet the same bytes, each
    worker's launches read from its report), with the card's utilization
    and memory sampled while they run; then the quasi-static Kalman
-   campaign of the same base,
+   campaign of the same base;
+7. ``bench_torch.py``'s measurement in this process (the bench pair's
+   cold, warm and fresh-process times, the serial and ``run_4d``
+   campaigns, K1, K2 and K5 against their bounds and ``torch.cdist``, the
+   inner-ICP rate), its line printed as it is,
 
 each checked against the known transforms, with the launch counts of the
 kernels read around each path.  Any failed check raises, as does a loaded
@@ -65,8 +69,8 @@ campaign, which runs all five kernels; times, bounds and errors of this
 run; the whole-loop launch of the label propagation has a row of its own).
 
 ``python3 chip_smoke.py --only PHASE [PHASE ...]`` builds the kernels and
-runs only the named phases of 2, 3, 5 and 6 (or the pair of 1), with no JSON
-record: the way to run one phase on another tree, such as a parent's.
+runs only the named phases of 2, 3, 5, 6 and 7 (or the pair of 1), with no
+JSON record: the way to run one phase on another tree, such as a parent's.
 
 ``python3 chip_smoke.py --sweep VARIANT [VARIANT ...]`` runs none of the
 above: it times K1-K4 and K4's whole loop at the same shapes (K1 at both of
@@ -90,6 +94,7 @@ import argparse
 import collections
 import dataclasses
 import hashlib
+import importlib
 import json
 import logging
 import os
@@ -104,6 +109,14 @@ import threading
 import time
 
 import numpy as np
+
+from piecewise_icp_torch.utils.measure import (bound, grid_bytes,
+                                               knn_sorted_bound,
+                                               nn1_brute_bound,
+                                               nvidia_smi_line,
+                                               range_nn1_bound, time_ms,
+                                               truth_mm, window_counts,
+                                               window_pairs)
 
 # main-path configuration: the reference's synthetic epoch (~142k points
 # at 5 mm spacing) with the default PiecewiseICPConfig res/SV/DT
@@ -132,14 +145,6 @@ REPLACES = {
     "propagate": ("piecewise_icp_torch/csrc/prop_round.cu",
                   "piecewise_icp_tpu/ops/seg_pallas.py:490"),
 }
-
-# Peak rates of one NVIDIA H100 SXM (data sheet): 3.35 TB/s of device memory
-# and 67 TFLOP/s in float32 outside the tensor cores.  The 67 counts a fused
-# multiply-add as two; the distance contract forbids fusing (products and
-# sums are rounded separately), so an operation here is one lane instruction
-# (a subtraction, a product, a sum, a comparison) and the peak is half of it.
-PEAK_BYTES_S = 3.35e12
-PEAK_LANE_OPS_S = 67e12 / 2
 
 # the kernels of the pair path with the default configuration (DTinit
 # set, so no K5)
@@ -222,32 +227,6 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def nvidia_smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, reps: int = 5) -> float:
-    """Median of ``reps`` CUDA-event-timed calls after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -257,70 +236,12 @@ def max_abs(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """The least time the card could take: every input read once and every
-    output written once at the memory rate, or the lane instructions this
-    run's data needs at the float32 rate, whichever is longer."""
-    by_bytes = 1e3 * n_bytes / PEAK_BYTES_S
-    by_ops = 1e3 * n_ops / PEAK_LANE_OPS_S
-    return dict(bound_ms=max(by_bytes, by_ops),
-                bound_by="bytes" if by_bytes >= by_ops else "operations",
-                library_ms=None)
-
-
-def window_counts(grid):
-    """Per cell of ``grid``, the number of points in its 27-cell window."""
-    import torch
-
-    dx, dy, dz = grid.dims
-    starts = grid.cell_starts[:dx * dy * dz + 1].long()
-    counts = (starts[1:] - starts[:-1]).reshape(1, 1, dx, dy, dz).double()
-    return torch.nn.functional.avg_pool3d(
-        counts, 3, stride=1, padding=1, divisor_override=1).reshape(-1)
-
-
-def window_pairs(grid, queries=None, q_mask=None) -> int:
-    """Candidates in the 27-cell windows of all live queries: what a grid
-    kernel has to meet on these inputs.  ``queries`` None: the self-join
-    (every grid point asks from the cell it was binned into)."""
-    import torch
-
-    dx, dy, dz = grid.dims
-    box = window_counts(grid)
-    if queries is None:
-        starts = grid.cell_starts[:dx * dy * dz + 1].long()
-        cell = torch.searchsorted(
-            starts[1:].contiguous(),
-            torch.arange(grid.n, device=starts.device), right=True)
-    else:
-        o = torch.tensor(grid.origin, dtype=torch.float32,
-                         device=queries.device)
-        c = torch.floor((queries - o) / np.float32(grid.h)).long()
-        hi = torch.tensor([dx - 1, dy - 1, dz - 1], device=queries.device)
-        c = torch.minimum(torch.clamp(c, min=0), hi)
-        cell = (c[:, 0] * dy + c[:, 1]) * dz + c[:, 2]
-    per_query = box[cell]
-    if q_mask is not None:
-        per_query = per_query[q_mask]
-    return int(per_query.sum())
-
-
 def smoke_pair(seed: int):
     """The smoke pair as a user hands it over: (cloud1, cloud2, T_true)."""
     from piecewise_icp_torch.utils.synth import make_pair
 
     return make_pair(np.random.default_rng(seed), PARAMS, n_side=N_SIDE,
                      extent=EXTENT)
-
-
-def truth_mm(t_est: np.ndarray, t_true: np.ndarray, pts: np.ndarray):
-    """Mean and max displacement (mm) that T_est @ T_true leaves on
-    ``pts`` (ideally none)."""
-    from piecewise_icp_torch.ops.transform import apply_transform_np
-
-    p = pts.astype(np.float64)
-    d = np.linalg.norm(apply_transform_np(p, t_est @ t_true) - p, axis=1)
-    return 1e3 * float(d.mean()), 1e3 * float(d.max())
 
 
 def bit_diff(a: np.ndarray, b: np.ndarray) -> int:
@@ -386,7 +307,7 @@ def self_join_facts(grid, where: str):
     log(f"{where}: {n} points, {grid.dims} = {n_cells} cells of "
         f"{grid.h:.6f} m, {int((cells[1:] > cells[:-1]).sum())} occupied; "
         f"the widest 27-cell window holds {widest} points")
-    return window_pairs(grid), 12 * n + 4 * (n_cells + 1), widest
+    return window_pairs(grid), grid_bytes(grid), widest
 
 
 def knn_check(grid, where: str) -> dict:
@@ -410,16 +331,13 @@ def knn_check(grid, where: str) -> dict:
     err = max_abs(kd[kr], pd[kr])
     require(err == 0.0, f"K2 ({where}): distances differ by {err}")
     # the self-join's candidates: every grid kernel meets them all
-    pairs, grid_bytes, widest = self_join_facts(grid, where)
-    # a distance (8) and its comparison with the k-th so far (1) for each
-    # candidate, then the order of the k kept (k log2 k comparisons a query)
+    pairs, _, widest = self_join_facts(grid, where)
     res = dict(
         max_abs_err=err,
         ms=time_ms(lambda: nn_cuda._knn_sorted_kernel(grid, all_q, k2)),
         plain_ms=time_ms(lambda: nn_cuda.knn_sorted_plain(
             fresh_grid(grid), all_q, k2)),
-        **bound(grid_bytes + n + 8 * n * k2,
-                9 * pairs + n * k2 * int(np.ceil(np.log2(k2)))))
+        **knn_sorted_bound(grid, k2, pairs))
     cap = _kernel_cap("pwicp_knn_cap")
     log(f"K2 knn_sorted ({where}) k={k2} h={h:.6f}: {int(kr.sum())}/{n} "
         f"resolved; ids and distances of resolved queries equal (tolerance "
@@ -451,7 +369,7 @@ def seg_prop_checks(grid, sv: float, where: str,
 
     n, h = grid.n, grid.h
     all_q = torch.ones(n, dtype=torch.bool, device=grid.points.device)
-    pairs, grid_bytes, widest = self_join_facts(grid, where)
+    pairs, g_bytes, widest = self_join_facts(grid, where)
     results = {}
     ks = seg_cuda._seg_stats_kernel(grid, all_q, KNN_NORMALS)
     ps = seg_cuda.seg_stats_plain(fresh_grid(grid), all_q, KNN_NORMALS)
@@ -470,7 +388,7 @@ def seg_prop_checks(grid, sv: float, where: str,
         # a distance (8), one comparison of the selection of the k-th
         # radius and the test against t2 for each candidate; 10 sums and 6
         # products for each neighbour kept (the counts of the output)
-        **bound(grid_bytes + n + 64 * n,
+        **bound(g_bytes + n + 64 * n,
                 10 * pairs + 16 * float(ks[:, 0].sum())))
     seg_cap, prop_cap = (_kernel_cap("pwicp_seg_cap"),
                          _kernel_cap("pwicp_prop_cap"))
@@ -498,7 +416,7 @@ def seg_prop_checks(grid, sv: float, where: str,
                 f"counts {int(ck)} != {int(cp)}")
         err = max(err, float((sk - sp).abs().max()))
     require(err == 0.0, f"K4 ({where}): state rows differ by {err}")
-    round_bytes = grid_bytes + 32 * n + n + 32 * n + 32 * n + 4
+    round_bytes = g_bytes + 32 * n + n + 32 * n + 32 * n + 4
     results["prop_round"] = dict(
         max_abs_err=err,
         ms=time_ms(lambda: seg_cuda._prop_round_kernel(
@@ -603,10 +521,7 @@ def range_nn1_check(shape: str, grid, q, qm, reps: int) -> dict:
         ms=time_ms(lambda: nn_cuda._range_nn1_kernel(q, qm, grid)),
         plain_ms=time_ms(lambda: nn_cuda.range_nn1_plain(q, qm, grid),
                          reps=reps),
-        # a distance and its comparison for each candidate; the grid, the
-        # queries (and their mask) in, index, distance, flag and count out
-        **bound(12 * grid.n + 4 * (grid.n_cells + 1)
-                + (12 if qm is None else 13) * nq + 13 * nq + 4, 9 * pairs))
+        **range_nn1_bound(grid, nq, qm is not None, pairs))
     log(f"K1 range_nn1, {shape}: h={grid.h}, {nq} queries "
         f"({'no mask' if qm is None else 'all live'}), {int(kr.sum())} "
         f"resolved, {int(kn)} counted unresolved; flags, count, ids and "
@@ -894,9 +809,7 @@ def k5_phase(seed: int) -> dict:
         max_abs_err=err,
         ms=time_ms(lambda: nn_cuda._nn1_brute_kernel(q, t, qm, tm)),
         plain_ms=time_ms(lambda: nn_cuda.nn1_brute_plain(q, t, qm, tm)),
-        # every live query meets every live target: 3 differences, 3
-        # products, 2 sums and the comparison
-        **bound(13 * nq + 13 * nt + 8 * nq, 9 * live_pairs))
+        **nn1_brute_bound(nq, nt, live_pairs, True, True))
     log(f"K5 nn1_brute {nq} x {nt} ({int(qm.sum())} "
         f"queries and {int(tm.sum())} targets unmasked, 100 duplicated "
         f"targets): ids and squared distances equal (tolerance 0); 75th "
@@ -921,8 +834,8 @@ def k5_phase(seed: int) -> dict:
             "K5 rescue shape: a sentinel target was matched")
     ms_r = time_ms(lambda: nn_cuda._nn1_brute_kernel(qs, ts))
     plain_r = time_ms(lambda: nn_cuda.nn1_brute_plain(qs, ts))
-    bound_r = bound(12 * N_RESCUE + 12 * nt + 8 * N_RESCUE,
-                    9 * N_RESCUE * (nt - 2000))["bound_ms"]
+    bound_r = nn1_brute_bound(N_RESCUE, nt, N_RESCUE * (nt - 2000), False,
+                              False)["bound_ms"]
     log(f"K5 nn1_brute, rescue shape {N_RESCUE} x {nt} (no masks, 2000 "
         f"targets at the sentinel): ids and squared distances equal "
         f"(tolerance 0); kernel {ms_r:.3f} ms, plain {plain_r:.3f} ms, "
@@ -1489,7 +1402,7 @@ def rockfall_kernels(res3, pts1: np.ndarray, pts2: np.ndarray,
         max_abs_err=max_abs(torch.sqrt(kd2), torch.sqrt(pd2)),
         ms=time_ms(lambda: nn_cuda._nn1_brute_kernel(q, t)),
         plain_ms=time_ms(lambda: nn_cuda.nn1_brute_plain(q, t), reps=1),
-        **bound(12 * nq + 12 * nt + 8 * nq, 9 * nq * nt))
+        **nn1_brute_bound(nq, nt, nq * nt, False, False))
     log(f"K5 nn1_brute, rockfall planning {nq} x {nt} (no masks): ids and "
         f"squared distances equal (tolerance 0); kernel "
         f"{res['nn1_brute']['ms']:.3f} ms, plain (chunked brute) "
@@ -1517,7 +1430,9 @@ def reproducible_phase(seed: int) -> None:
     import torch
 
     import piecewise_icp_torch as pwt
-    from piecewise_icp_torch.models import piecewise_icp as core_mod
+    # the module: the package's name ``piecewise_icp`` is the function
+    core_mod = importlib.import_module(
+        "piecewise_icp_torch.models.piecewise_icp")
     from piecewise_icp_torch.models.pairwise import register_pair
     from piecewise_icp_torch.models.segmentation_device import \
         preprocess_segment_device
@@ -2794,6 +2709,49 @@ def fleet_phase(seed: int) -> dict:
                    for w in FLEET_WORKERS] for name in REPLACES}
 
 
+def bench_phase(seed: int) -> None:
+    """``bench_torch.py``'s measurement at the card's defaults, its line
+    printed on a line of its own; fails on a key missing from the line, a
+    pair outside the truth bounds, campaign errors outside 200 mgon / 5 mm,
+    K1-K4 not launched in the warm pair or K1, K2, K5 in the kernel
+    timings, a plain version on a CUDA tensor, or a share of a bound above
+    100%."""
+    import bench_torch
+
+    t0 = time.perf_counter()
+    rec = bench_torch.measure(seed)
+    print(json.dumps(rec), flush=True)
+    missing = bench_torch.missing_keys(rec)
+    require(not missing, f"bench: the line lacks {missing}")
+    log(f"bench: warm pair {rec['variance']['warm_s']} s (min, median, "
+        f"max), campaign {rec['variance']['campaign_epoch_s']} s a pair, "
+        f"serial {rec['variance']['campaign_serial_epoch_s']} s, cold "
+        f"{rec['cold_s']:.3f} s, fresh process {rec['cold_fresh_s']} s; "
+        f"residual {rec['residual_mean_mm']:.4f} / "
+        f"{rec['residual_max_mm']:.4f} mm; campaign errors "
+        f"{rec['campaign_errors']}; the phase {time.perf_counter() - t0:.1f} "
+        f"s")
+    require(rec["residual_mean_mm"] < 2.0 and rec["residual_max_mm"] < 5.0,
+            "bench: the pair is outside the truth bounds (2 mm / 5 mm)")
+    err = rec["campaign_errors"]
+    require(err["rot_max_mgon"] < 200.0 and err["trans_max_mm"] < 5.0,
+            f"bench: campaign errors {err} outside 200 mgon / 5 mm")
+    for name in PAIR_KERNELS:
+        require(rec["launches"].get(name, 0) > 0,
+                f"bench: kernel {name} was not launched in the warm pair")
+    require(not rec["plain_on_cuda"],
+            f"bench: plain versions ran on CUDA tensors: "
+            f"{rec['plain_on_cuda']}")
+    nn = rec["nn_kernels"]
+    for name in ("range_nn1", "knn_sorted", "nn1_brute"):
+        require(nn["launches"][name] > 0,
+                f"bench: kernel {name} was not launched in nn_kernels")
+    for name, roof in nn["roofline"].items():
+        if name != "model":
+            require(roof["share_pct"] <= 100.0,
+                    f"bench: {name} at {roof['share_pct']}% of its bound")
+
+
 def profile_run(run, label: str) -> None:
     """``run`` once more under torch.profiler: wall time, host phases, the
     device's busy share and its kernels by time (where the time goes)."""
@@ -2972,7 +2930,8 @@ ONLY_PHASES = {"reproducible": reproducible_phase, "variants": variants_phase,
                "change_screen": change_screen_phase,
                "exports_hooks": exports_hooks_phase, "capi": capi_phase,
                "pair": pair_phase, "sharded": sharded_phase,
-               "rockfall": rockfall_phase, "fleet": fleet_phase}
+               "rockfall": rockfall_phase, "fleet": fleet_phase,
+               "bench": bench_phase}
 
 
 def main(argv=None) -> int:
@@ -3005,13 +2964,7 @@ def main(argv=None) -> int:
             if done.returncode != 0:
                 return done.returncode
         return 0
-    try:
-        import piecewise_icp_torch  # noqa: F401
-        from piecewise_icp_torch.ops import _cuda
-    except ImportError as e:
-        print(f"chip_smoke: cannot import the port ({e}); run it from the "
-              "repository root", file=sys.stderr)
-        return 3
+    from piecewise_icp_torch.ops import _cuda
 
     smi = nvidia_smi_line()
     nvcc = shutil.which("nvcc") or (
@@ -3052,6 +3005,7 @@ def main(argv=None) -> int:
     sharded_phase(args.seed)
     launches = four_d_phase(args.seed, kern["nn1_brute"]["ms"])
     fleet = fleet_phase(args.seed)
+    bench_phase(args.seed)
     foreign = _foreign_modules()
     require(not foreign, f"JAX or the JAX package was imported: {foreign}")
 

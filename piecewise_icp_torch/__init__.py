@@ -15,12 +15,15 @@ device, and raises when no GPU is visible.
 ...                           pair_mode=-1)
 """
 
-from .config import ConfigError, PiecewiseICPConfig
+from .config import ARC_TO_GON, ConfigError, PiecewiseICPConfig
 
 from . import device as _device  # noqa: F401  (sets float32 precision)
 
-__all__ = ["ConfigError", "PiecewiseICPConfig", "register_pair",
-           "piecewise_icp_pair_call", "run_4d", "piecewise_icp_4d_call"]
+__version__ = "0.1.0"
+
+__all__ = ["ARC_TO_GON", "ConfigError", "PiecewiseICPConfig",
+           "register_pair", "piecewise_icp_pair_call", "run_4d",
+           "piecewise_icp_4d_call"]
 
 
 def __getattr__(name):

@@ -5,6 +5,7 @@ staged loop (classification, inner ICP, stage-1 percentile through K1's
 plain version, DT schedule, robust refine, VCM) is compared apart from
 segmentation."""
 
+import importlib
 import itertools
 
 import numpy as np
@@ -20,7 +21,6 @@ from piecewise_icp_tpu.ops.preprocess import \
 
 from piecewise_icp_torch.config import config_from_jax
 from piecewise_icp_torch.models.pairwise import TargetState, register_pair
-from piecewise_icp_torch.models import piecewise_icp as core_mod
 from piecewise_icp_torch.models.piecewise_icp import piecewise_icp
 from piecewise_icp_torch.models.segmentation import PatchSet
 from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
@@ -28,6 +28,10 @@ from piecewise_icp_torch.ops.nn_cuda import nn1_brute, range_nn1
 from piecewise_icp_torch.ops.transform import translation_matrix
 
 from util import make_pair, small_test_config, terrain_cloud
+
+# the module: the package's name ``piecewise_icp`` is the function, as in
+# the JAX package
+core_mod = importlib.import_module("piecewise_icp_torch.models.piecewise_icp")
 
 PARAMS = np.array([0.002, -0.0015, 0.0025, 0.004, -0.006, 0.005])
 

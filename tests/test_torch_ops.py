@@ -2,6 +2,7 @@
 transforms, the closed-form 3x3 eigensolve, segment reductions, the grid
 index, and the port's independence from JAX."""
 
+import importlib
 import pathlib
 import subprocess
 import sys
@@ -18,12 +19,15 @@ from piecewise_icp_tpu.ops import segment_ops as jseg
 from piecewise_icp_tpu.ops import transform as jtr
 from piecewise_icp_tpu.ops.grid_nn import build_grid as jbuild_grid
 
-from piecewise_icp_torch.ops import eigh3 as teig
 from piecewise_icp_torch.ops import segment_ops as tseg
 from piecewise_icp_torch.ops import transform as ttr
 from piecewise_icp_torch.ops.grid_nn import build_grid as tbuild_grid
 
 from util import terrain_cloud
+
+# the module: the package's name ``eigh3`` is the function, as in the JAX
+# package
+teig = importlib.import_module("piecewise_icp_torch.ops.eigh3")
 
 
 def _covs(rng, n=500):

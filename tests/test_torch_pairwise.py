@@ -169,13 +169,12 @@ def test_staged_prep_pair(rng):
 
 
 def _pair_entry_points():
-    from piecewise_icp_torch.models import (pairwise, piecewise_icp,
-                                            segmentation,
+    from piecewise_icp_torch.models import (pairwise, segmentation,
                                             segmentation_device)
     from piecewise_icp_torch.ops import preprocess
 
     return [pairwise.prepare_target, pairwise.register_pair,
-            pairwise.piecewise_icp_pair_call, piecewise_icp.piecewise_icp,
+            pairwise.piecewise_icp_pair_call, piecewise_icp,
             segmentation.build_patches,
             segmentation_device.segment_patches_device,
             segmentation_device.preprocess_segment_device,

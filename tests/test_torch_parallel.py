@@ -14,6 +14,7 @@ imported inside the fixtures that compute its references.
 """
 
 import dataclasses
+import importlib
 import multiprocessing
 import os
 import subprocess
@@ -28,7 +29,6 @@ from piecewise_icp_torch import piecewise_icp_pair_call
 from piecewise_icp_torch.__main__ import main as cli_main
 from piecewise_icp_torch.config import PiecewiseICPConfig
 from piecewise_icp_torch.io import formats, write_pcd
-from piecewise_icp_torch.models import piecewise_icp as core_mod
 from piecewise_icp_torch.models.four_d import run_4d
 from piecewise_icp_torch.models.segmentation import PatchSet
 from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
@@ -41,6 +41,10 @@ from piecewise_icp_torch.parallel import (ShardGroup, gather_rows,
 from piecewise_icp_torch.utils.errors import PwICPError
 from piecewise_icp_torch.utils.logging import GLOBAL_TIMER
 from piecewise_icp_torch.utils.synth import make_series, write_ground_truth
+
+# the module: the package's name ``piecewise_icp`` is the function, as in
+# the JAX package
+core_mod = importlib.import_module("piecewise_icp_torch.models.piecewise_icp")
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARC_TO_MGON = 1000.0 * 200.0 / np.pi

@@ -1,7 +1,8 @@
 """PyTorch port, stand-alone: the package, every module under it (its
-``parallel`` package included), its CLI and ``chip_smoke.py`` import
-nothing of JAX and nothing of the JAX package (``piecewise_icp_tpu``), and
-a registration runs with both blocked."""
+``parallel`` package and ``utils/measure.py`` included), its CLI,
+``chip_smoke.py`` and ``bench_torch.py`` import nothing of JAX and nothing
+of the JAX package (``piecewise_icp_tpu``), and a registration runs with
+both blocked."""
 
 import ast
 import pathlib
@@ -13,7 +14,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT_SOURCES = sorted((ROOT / "piecewise_icp_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "bench_torch.py"]
 FOREIGN = ("piecewise_icp_tpu", "jax", "jaxlib")
 
 
@@ -39,7 +40,8 @@ def test_no_import_statement_names_the_jax_package(path):
 def test_port_runs_with_the_jax_package_blocked():
     """In a fresh interpreter with ``piecewise_icp_tpu``, ``jax`` and
     ``jaxlib`` blocked: import the package, every module under it and
-    ``__main__``, then register a tiny pair on the CPU."""
+    ``__main__``, and ``bench_torch``; register a tiny pair on the CPU and
+    take its errors and residual through the bench's helpers."""
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         for name in ("piecewise_icp_tpu", "jax", "jaxlib"):
@@ -52,6 +54,7 @@ def test_port_runs_with_the_jax_package_blocked():
         assert "piecewise_icp_torch.io.formats" in names, names
         assert "piecewise_icp_torch.parallel.distributed" in names, names
         assert "piecewise_icp_torch.utils.scale" in names, names
+        assert "piecewise_icp_torch.utils.measure" in names, names
         for name in names:
             importlib.import_module(name)
         from piecewise_icp_torch.utils.synth import make_pair
@@ -64,6 +67,11 @@ def test_port_runs_with_the_jax_package_blocked():
         out = pwt.register_pair(c1, c2, cfg, device="cpu")
         assert out.trans_mat.shape == (4, 4)
         assert np.isfinite(out.trans_mat).all()
+        import bench_torch
+        from piecewise_icp_torch.utils.measure import truth_mm
+        rot, trans = bench_torch.pose_errors(out.trans_mat, t_true)
+        mean, mx = truth_mm(out.trans_mat, t_true, c2)
+        assert rot < 200 and trans < 5 and mean < 2 and mx < 5
         loaded = [m for m in sys.modules
                   if m.split(".")[0] in ("piecewise_icp_tpu", "jax", "jaxlib")
                   and sys.modules[m] is not None]
