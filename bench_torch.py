@@ -24,10 +24,10 @@ port's defaults) and measures, on the card:
   files (5 pairs, fixed interval), wall over pairs, median of ``--reps``
   after a warm run;
 * the pair's accuracy under the symmetric objective;
-* ``nn_kernels``: K1, K2 and K5 on the voxelised first epoch, each the
-  median of 5 calls between CUDA events after a warm-up, against its bound
-  on the card, and one call of ``torch.cdist`` (direct mode) and ``amin``
-  for the brute search;
+* ``nn_kernels``: K1, K2, K5 and K6 on the voxelised first epoch, each
+  the median of 5 calls between CUDA events after a warm-up, against its
+  bound on the card, and one call of ``torch.cdist`` (direct mode) and
+  ``amin`` for the brute search, and ``topk`` for the brute k-NN;
 * ``icp_iters_per_s``: 32 chained ``point_to_plane_icp`` solves on the
   pair's patch centroids.
 
@@ -71,6 +71,11 @@ CAMPAIGN_TREND = (0.0, 0.0, 0.02)
 ICP_CHAIN = 32
 ICP_SHIFT = (2e-3, -1e-3, 1.5e-3)
 KERNEL_REPS = 5
+# K6 at the unified SOR rescue's largest shape: its budget of unresolved
+# queries (ops/preprocess.py:_SOR_RESCUE), drawn at random from the epoch,
+# against the epoch, k + 1 slots
+KNN_RESCUE = 4096
+SOR_K = 14
 
 # the keys of the line (dotted for nested ones); chip_smoke.py's bench phase
 # fails on a line without one of them
@@ -87,10 +92,12 @@ LINE_KEYS = (
     "nn_kernels.launch_floor_ms", "nn_kernels.brute_kernel_ms",
     "nn_kernels.library_brute_ms", "nn_kernels.range_nn1_ms",
     "nn_kernels.range_nn1_sorted_ms", "nn_kernels.knn_sorted_ms",
+    "nn_kernels.knn_brute_ms", "nn_kernels.library_knn_ms",
     "nn_kernels.launches", "nn_kernels.roofline.model",
     "nn_kernels.roofline.nn1_brute", "nn_kernels.roofline.range_nn1",
     "nn_kernels.roofline.range_nn1_sorted",
-    "nn_kernels.roofline.knn_sorted", "nn_kernels.note", "phases",
+    "nn_kernels.roofline.knn_sorted", "nn_kernels.roofline.knn_brute",
+    "nn_kernels.note", "phases",
     "fine_phases", "launches", "plain_on_cuda", "trans_mat", "n_points",
     "seed", "device.name", "device.power_limit", "device.count")
 
@@ -306,19 +313,41 @@ def library_brute(q, t):
         for s in range(0, q.shape[0], rows)])
 
 
+def library_knn(q, t, k: int):
+    """The k smallest distances through the library: ``torch.cdist`` in its
+    direct mode, then ``topk``, over query chunks that fit the card.  A
+    yardstick only."""
+    import torch
+
+    from piecewise_icp_torch.ops.nn_cuda import _chunk_rows
+
+    rows = _chunk_rows(t.shape[0], t.device)
+    return torch.cat([
+        torch.cdist(q[s:s + rows], t,
+                    compute_mode="donot_use_mm_for_euclid_dist").topk(
+                        k, dim=1, largest=False).values
+        for s in range(0, q.shape[0], rows)])
+
+
 def nn_kernels(pts1: np.ndarray, res: float, dev) -> dict:
-    """K5, K1 and K2 at ``bench.py``'s shapes on the voxelised epoch: the
-    brute 1-NN of every point against all (n x n), the grid 1-NN of every
-    point on its own grid of 4 x res in file order (the kernel's wrapper)
-    and cell-sorted (the stage-1 path's public call), and the self-join
-    with k = 2 (the nearest other point); each time beside its bound."""
+    """K5, K1, K2 and K6 at ``bench.py``'s shapes on the voxelised epoch:
+    the brute 1-NN of every point against all (n x n), the grid 1-NN of
+    every point on its own grid of 4 x res in file order (the kernel's
+    wrapper) and cell-sorted (the stage-1 path's public call), the
+    self-join with k = 2 (the nearest other point), and the SOR rescue's
+    brute k-NN at the unified path's largest shape (``KNN_RESCUE`` queries
+    against all, k + 1 = 15, the SOR-mean epilogue); each time beside its
+    bound.  K6's queries are a random sample of the epoch, not the sparse
+    points the rescue meets (``chip_smoke.py``'s rockfall phase times K6 on
+    those): its list takes inserts at another rate there."""
     import torch
 
     from piecewise_icp_torch.models.piecewise_icp import _cell_order
     from piecewise_icp_torch.ops import _cuda, nn_cuda
     from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
     from piecewise_icp_torch.ops.preprocess import voxel_downsample
-    from piecewise_icp_torch.utils.measure import (knn_sorted_bound,
+    from piecewise_icp_torch.utils.measure import (knn_brute_bound,
+                                                   knn_sorted_bound,
                                                    nn1_brute_bound,
                                                    range_nn1_bound, time_ms,
                                                    window_pairs)
@@ -330,6 +359,8 @@ def nn_kernels(pts1: np.ndarray, res: float, dev) -> dict:
     q = torch.from_numpy(down).to(dev)
     q_sorted = torch.from_numpy(down[_cell_order(down, index)]).to(dev)
     all_q = torch.ones(n, dtype=torch.bool, device=dev)
+    q_rescue = q[torch.from_numpy(np.sort(np.random.default_rng(0).choice(
+        n, min(KNN_RESCUE, n), replace=False))).to(dev)]
 
     def ms(fn):
         return time_ms(fn, reps=KERNEL_REPS, device=dev.type)
@@ -341,14 +372,21 @@ def nn_kernels(pts1: np.ndarray, res: float, dev) -> dict:
         "range_nn1_sorted_ms": ms(
             lambda: nn_cuda.range_nn1(q_sorted, None, grid)),
         "knn_sorted_ms": ms(lambda: nn_cuda.knn_sorted(grid, all_q, 2)),
+        "knn_brute_ms": ms(lambda: nn_cuda.knn_brute(
+            q_rescue, q, SOR_K + 1, epilogue="sor_mean")),
     }
     launches = {k: int(_cuda.LAUNCHES.get(k, 0))
-                for k in ("range_nn1", "knn_sorted", "nn1_brute")}
+                for k in ("range_nn1", "knn_sorted", "nn1_brute",
+                          "knn_brute")}
     # one call, no warm-up: the direct mode meets the n x n pairs about
     # 3,000 times slower than K5 (20.7-20.8 s at 129,097 x 129,097 on an
     # NVIDIA H100 80GB HBM3 at 700 W), and K5's launches have warmed the card
     times["library_brute_ms"] = time_ms(lambda: library_brute(q, q), reps=1,
                                         device=dev.type, warmup=False)
+    times["library_knn_ms"] = time_ms(
+        lambda: library_knn(q_rescue, q, SOR_K + 1), reps=1,
+        device=dev.type, warmup=False)
+    nr = q_rescue.shape[0]
     bounds = {
         "nn1_brute": (nn1_brute_bound(n, n, n * n, False, False),
                       times["brute_kernel_ms"]),
@@ -359,6 +397,8 @@ def nn_kernels(pts1: np.ndarray, res: float, dev) -> dict:
             times["range_nn1_sorted_ms"]),
         "knn_sorted": (knn_sorted_bound(grid, 2, window_pairs(grid)),
                        times["knn_sorted_ms"]),
+        "knn_brute": (knn_brute_bound(nr, n, nr * n, False, 1),
+                      times["knn_brute_ms"]),
     }
     on_card = dev.type == "cuda"
     roofline = {"model": "NVIDIA H100 SXM data sheet: 3.35e12 B/s of "
@@ -381,6 +421,12 @@ def nn_kernels(pts1: np.ndarray, res: float, dev) -> dict:
         "note": "grid_h = 4 x res; brute and library at n x n; "
                 "library_brute_ms is ONE call of torch.cdist (direct mode) "
                 "+ amin over query chunks, never on the port's path; "
+                "knn_brute at the unified SOR rescue's largest shape "
+                f"({nr} queries x n, k + 1 = {SOR_K + 1}; the queries a "
+                "random sample of the epoch, not the rescue's sparse "
+                "points), "
+                "library_knn_ms ONE call of torch.cdist (direct mode) + "
+                "topk there; "
                 "bench.py's "
                 "grid_xla_gather_ms has no counterpart: the XLA gather grid "
                 "query is not ported (the CSR-walk kernels replace it)",

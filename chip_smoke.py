@@ -7,7 +7,9 @@ Builds the port's CUDA kernels from ``piecewise_icp_torch/csrc`` (nvcc),
 holds each kernel against its plain PyTorch version at the main path's
 shapes (142,884-point synthetic terrain epochs; the grid 1-NN at the shape
 of the stage-1 percentile and at that of adaptive planning; the brute 1-NN
-also at the shape of the stage-1 rescue; the three self-join kernels also
+also at the shape of the stage-1 rescue; the brute k-NN at the shapes of
+resolution estimation, of the SOR of a cloud no grid fits and of the
+rockfall pair's SOR rescue; the three self-join kernels also
 on a grid with sentinel points and one cell crowded beyond the window a
 block stages in shared memory, and the grid 1-NN on it too; the label propagation as one round and as the whole loop
 in one launch, also with the round cap reached before convergence), works
@@ -20,8 +22,9 @@ two entry points on the card:
    argument (the default is the card), one 3,600-point pair that takes
    the staged preprocessing path, and one full-width pair with 6,000
    isolated points per epoch, which the unified path declines: the staged
-   SOR re-measures every unresolved query on the card (and takes the
-   brute k-NN on the card when no grid fits);
+   SOR re-measures every unresolved query on the card by the brute k-NN
+   (and takes the brute k-NN on the card for every point when no grid
+   fits);
 2. reproducibility: a smoke epoch's PatchSet and a whole registration of
    the smoke pair, each twice, bit for bit;
 3. the smoke pair under the symmetric objective and under inverse-variance
@@ -45,7 +48,7 @@ two entry points on the card:
    epochs 1 and 2 (the staged path; its transform within 0.5 mm at the box
    corners of the JAX package's, a constant here), the same pair with the
    acceptance guard firing, and the 6-epoch Kalman campaign through
-   ``piecewise_icp_4d_call``; then K1-K5 against their plain versions at
+   ``piecewise_icp_4d_call``; then K1-K6 against their plain versions at
    that path's shapes;
 6. BASELINE configuration 5 on the series of
    ``piecewise_icp_torch.utils.scale``: 101 epochs of the 142,884-point
@@ -65,8 +68,9 @@ JAX or JAX package; the script exits 0 only when every phase passed.  The
 last line of standard output is the JSON summary ``{"ok": true, "device":
 {...}}``; the line before it is the card's name and power limit, and the
 one before that the per-kernel JSON record (launches counted in the 4D
-campaign, which runs all five kernels; times, bounds and errors of this
-run; the whole-loop launch of the label propagation has a row of its own).
+campaign, which runs the five TPU kernels' counterparts, and for the brute
+k-NN in the rockfall phase; times, bounds and errors of this run; the
+whole-loop launch of the label propagation has a row of its own).
 
 ``python3 chip_smoke.py --only PHASE [PHASE ...]`` builds the kernels and
 runs only the named phases of 2, 3, 5, 6 and 7 (or the pair of 1), with no
@@ -144,12 +148,23 @@ REPLACES = {
     # two while_loops inside one jitted program)
     "propagate": ("piecewise_icp_torch/csrc/prop_round.cu",
                   "piecewise_icp_tpu/ops/seg_pallas.py:490"),
+    # hand-written, no Pallas counterpart: the exact k-NN statistic to which
+    # the JAX package's TPU branch hands a declined cloud (the rockfall
+    # pair's staged SOR), also its in-program rescue and ops/nn.py:knn
+    "knn_brute": ("piecewise_icp_torch/csrc/knn_brute.cu",
+                  "piecewise_icp_tpu/native/pwicp_host.cpp:351"),
 }
 
 # the kernels of the pair path with the default configuration (DTinit
 # set, so no K5)
 PAIR_KERNELS = ("range_nn1", "knn_sorted", "seg_stats", "prop_round",
                 "propagate")
+# the kernels the drifting campaign must launch (auto DT-init: K5 too);
+# K6 runs there only where the unified SOR leaves queries to its rescue
+CAMPAIGN_KERNELS = PAIR_KERNELS + ("nn1_brute",)
+# the kernels of the rockfall path (both clouds decline the unified path:
+# the staged SOR re-measures its unresolved queries by K6)
+ROCKFALL_KERNELS = PAIR_KERNELS + ("knn_brute",)
 
 # the 4D campaign: the reference's synthetic series length, random-walk
 # ground truth per step (rotation std 8e-4 rad, translation std 3 mm) plus
@@ -856,27 +871,89 @@ def k5_phase(seed: int) -> dict:
     return res
 
 
-def resolution_check(seed: int) -> None:
-    """estimate_resolution on the card against a float64 KD-tree."""
+def k6_check(label: str, q, t, k: int, epilogue: str, t_mask=None,
+             library: bool = False) -> dict:
+    """K6 against its plain version on the card at tolerance 0 (the same
+    bits), with the target mask the path hands it: the k squared
+    distances, then the path's epilogue; the
+    kernel's time (median of 5), the plain version's (one call), the bound
+    from these inputs and, where ``library``, one call of chunked
+    ``torch.cdist`` (direct mode) + ``topk``, which the port never calls.
+    These launches are comparisons: callers read their path's counts
+    before."""
+    import torch
+
+    from bench_torch import library_knn
+    from piecewise_icp_torch.ops import nn_cuda
+    from piecewise_icp_torch.utils.measure import knn_brute_bound
+
+    for ep in ("d2", epilogue):
+        kern = nn_cuda._knn_brute_kernel(q, t, k, t_mask, ep)
+        plain = nn_cuda.knn_brute_plain(q, t, k, t_mask, ep)
+        torch.cuda.synchronize()
+        require(kern.shape == plain.shape and torch.equal(
+            kern.view(torch.int32), plain.view(torch.int32)),
+            f"K6 ({label}, {ep}): differs from the plain version")
+    finite = torch.isfinite(plain)
+    nq, nt = q.shape[0], t.shape[0]
+    live = nt if t_mask is None else int(t_mask.sum())
+    res = dict(
+        max_abs_err=max_abs(kern[finite], plain[finite]),
+        ms=time_ms(lambda: nn_cuda._knn_brute_kernel(q, t, k, t_mask,
+                                                     epilogue)),
+        plain_ms=time_ms(lambda: nn_cuda.knn_brute_plain(q, t, k, t_mask,
+                                                         epilogue),
+                         reps=1, warmup=False),
+        **knn_brute_bound(nq, nt, nq * live, t_mask is not None,
+                          1 if epilogue == "sor_mean" else k))
+    if library:
+        res["library_ms"] = time_ms(lambda: library_knn(q, t, k), reps=1,
+                                    warmup=False)
+    lib_ms = ("not timed" if res["library_ms"] is None
+              else f"{res['library_ms']:.3f} ms")
+    log(f"K6 knn_brute, {label}: {nq} x {nt}, k = {k}: squared distances "
+        f"and the {epilogue} epilogue equal the plain version (tolerance "
+        f"0); kernel {res['ms']:.3f} ms, plain (chunked sqdist + topk) "
+        f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
+        f"({res['bound_by']}): {100 * res['bound_ms'] / res['ms']:.1f}% of "
+        f"it; torch.cdist (direct mode) + topk, chunked: {lib_ms}")
+    return res
+
+
+def resolution_check(seed: int) -> dict:
+    """estimate_resolution on the card against a float64 KD-tree: one K6
+    launch, no plain version on the card; then K6 at its shape (n x n,
+    k = 2, the all-true target mask it passes) against its plain
+    version."""
     import torch
     from scipy.spatial import cKDTree
 
+    from piecewise_icp_torch.ops import _cuda
     from piecewise_icp_torch.ops.preprocess import estimate_resolution
     from piecewise_icp_torch.utils.synth import terrain_cloud
 
     pts = terrain_cloud(np.random.default_rng(seed), n_side=N_SIDE,
                         extent=EXTENT)
+    _cuda.reset_counts()
     t0 = time.perf_counter()
     got = estimate_resolution(torch.from_numpy(pts).to("cuda"))
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    require(launches == {"knn_brute": 1} and not _cuda.PLAIN_ON_CUDA,
+            f"estimate_resolution: launches {launches}, plain versions on "
+            f"CUDA {dict(_cuda.PLAIN_ON_CUDA)}")
     d, _ = cKDTree(pts.astype(np.float64)).query(pts.astype(np.float64), k=2)
     want = float(d[:, 1].mean())
     rel = abs(got - want) / want
     log(f"resolution: {got:.9g} m on the card vs {want:.9g} m (float64 "
         f"KD-tree), relative {rel:.2e} (bound 1e-5); {dt:.3f} s for "
-        f"{len(pts)} points")
+        f"{len(pts)} points; launches {launches}")
     require(rel <= 1e-5, "estimate_resolution differs from the KD-tree")
+    p = torch.from_numpy(pts).to("cuda")
+    return k6_check("resolution estimation", p, p, 2, "dist",
+                    t_mask=torch.ones(p.shape[0], dtype=torch.bool,
+                                      device="cuda"))
 
 
 # ---------------------------------------------------------------------------
@@ -1015,9 +1092,10 @@ def _exact_sor_keep(pts: np.ndarray, k: int, mult: float) -> np.ndarray:
 def sparse_staged_phase(seed: int) -> dict:
     """Full-width epochs with N_SPARSE isolated points each: more unresolved
     SOR queries than the unified path's budget, so it declines and the
-    staged SOR re-measures every unresolved query on the card.  Also the
-    staged SOR of a cloud no grid fits (one point 10 km away): the brute
-    k-NN on the card."""
+    staged SOR re-measures every unresolved query on the card (K6).  Also
+    the staged SOR of a cloud no grid fits (one point 10 km away): the
+    brute k-NN on the card (K6 at n x n), held against its plain version
+    at that shape, whose numbers it returns."""
     import torch
     from scipy.spatial import cKDTree
 
@@ -1072,13 +1150,20 @@ def sparse_staged_phase(seed: int) -> dict:
         require(agree >= 0.999, f"sparse staged SOR ({label}) differs from "
                 "the exact statistic")
         if label == "grid":
-            require(launches.get("knn_sorted", 0) > 0,
-                    "sparse staged SOR: K2 was not launched")
+            require(launches.get("knn_sorted", 0) > 0
+                    and launches.get("knn_brute", 0) == 1,
+                    "sparse staged SOR: K2 and one rescue by K6 were not "
+                    "launched")
         else:
-            require(not launches, "sparse staged SOR (no grid): a grid "
-                    "kernel was launched")
+            require(launches == {"knn_brute": 1}, "sparse staged SOR (no "
+                    "grid): not the brute k-NN alone (K6)")
             require(not keep[-1], "sparse staged SOR (no grid): the far "
                     "point was kept")
+            nogrid = torch.from_numpy(cloud).to("cuda")
+    # sor_filter_mask hands K6 an all-true target mask
+    k6 = k6_check("no-grid SOR (n x n)", nogrid, nogrid, SOR_K + 1, "dist",
+                  t_mask=torch.ones(nogrid.shape[0], dtype=torch.bool,
+                                    device="cuda"))
 
     cfg = pwt.PiecewiseICPConfig()
     _cuda.reset_counts()
@@ -1089,8 +1174,10 @@ def sparse_staged_phase(seed: int) -> dict:
     launches = dict(_cuda.LAUNCHES)
     require(not _cuda.PLAIN_ON_CUDA,
             f"plain versions ran on CUDA tensors: {dict(_cuda.PLAIN_ON_CUDA)}")
-    # two declined unified SORs and two staged ones, then segmentation
-    require(launches.get("knn_sorted", 0) >= 4,
+    # two declined unified SORs and two staged ones (each re-measuring its
+    # unresolved queries by K6), then segmentation
+    require(launches.get("knn_sorted", 0) >= 4
+            and launches.get("knn_brute", 0) >= 2,
             f"sparse staged pair: the staged SOR did not run on the card "
             f"({launches})")
     for name in ("range_nn1", "seg_stats", "prop_round", "propagate"):
@@ -1103,7 +1190,7 @@ def sparse_staged_phase(seed: int) -> dict:
         f"launches {launches}")
     require(mean < 2.0 and mx < 5.0,
             "sparse staged pair outside the truth bounds")
-    return launches
+    return k6
 
 
 # ---------------------------------------------------------------------------
@@ -1158,9 +1245,13 @@ def rockfall_phase(seed: int) -> dict:
     source's box corners of the JAX package's, ``JAX_ROCKFALL_PAIR``), the
     same pair with the acceptance guard firing, and the Kalman-smoothed 4D
     campaign through ``piecewise_icp_4d_call`` from the file the port
-    writes; the launches of the phase (K1-K4 required, no plain version on
-    a CUDA tensor).  Then K1-K5 against their plain versions at this path's
-    shapes.  Returns each kernel's numbers at these shapes."""
+    writes; the launches of the phase (K1-K4 and K6 required, no plain
+    version on a CUDA tensor).  Then K1-K6 against their plain versions at
+    this path's shapes.  Returns each kernel's numbers at these shapes.
+
+    The pair's transform and VCM are printed as digests of their bytes, its
+    SOR's device time (``prep.sor.device``) a warm pair: two trees compare
+    from their lines."""
     import torch
 
     import piecewise_icp_torch as pwt
@@ -1244,11 +1335,23 @@ def rockfall_phase(seed: int) -> dict:
                 f"re-measure unresolved queries on both clouds ({rescued})")
         require(gap < 5e-4, f"rockfall pair: {1e3 * gap:.4f} mm off the JAX "
                 "package's transform at the box corners")
-        warm = [pair(cfg)[1] for _ in range(3)]
+        log(f"rockfall pair: transform bytes sha256 "
+            f"{hashlib.sha256(t3.tobytes()).hexdigest()[:16]}, VCM "
+            f"{hashlib.sha256(res3.vcm.tobytes()).hexdigest()[:16]}")
+        warm, sor_dev = [], []
+        for _ in range(3):
+            GLOBAL_TIMER.records.clear()
+            warm.append(pair(cfg)[1])
+            sor_dev.append(GLOBAL_TIMER.summary().get("prep.sor.device",
+                                                      0.0))
+        busy = profile_run(lambda: pair(cfg), "rockfall warm pair")
         log(f"rockfall pair: cold {cold_s:.3f} s, warm median of 3 "
             f"{statistics.median(warm):.3f} s "
-            f"({', '.join(f'{w:.3f}' for w in warm)})")
-        profile_run(lambda: pair(cfg), "rockfall warm pair")
+            f"({', '.join(f'{w:.3f}' for w in warm)}); prep.sor.device "
+            f"(both clouds, the declined unified SOR and the staged one) "
+            f"median {1e3 * statistics.median(sor_dev):.1f} ms "
+            f"({', '.join(f'{1e3 * v:.1f}' for v in sor_dev)}); profiled "
+            f"warm pair device busy {100 * busy:.1f}%")
 
         # ---- the same pair with the acceptance guard firing ----
         resg, guard_s = pair(rockfall.rockfall_config(
@@ -1337,7 +1440,7 @@ def rockfall_phase(seed: int) -> dict:
         f"profiled, guarded, configuration 4) {launches}; plain versions on "
         f"CUDA: "
         f"{plain_on_cuda or 'none'}")
-    for name in PAIR_KERNELS:
+    for name in ROCKFALL_KERNELS:
         require(launches.get(name, 0) > 0,
                 f"rockfall: kernel {name} was not launched")
     require(not plain_on_cuda,
@@ -1351,10 +1454,12 @@ def rockfall_phase(seed: int) -> dict:
 
 def rockfall_kernels(res3, pts1: np.ndarray, pts2: np.ndarray,
                      sv: float) -> dict:
-    """K1-K5 against their plain versions at the rockfall path's shapes
+    """K1-K6 against their plain versions at the rockfall path's shapes
     (the tolerances of the kernel phases): K2 on the staged SOR's grid of
     the voxelised target (the grid whose unresolved queries the staged SOR
-    re-measures), K3 and K4 on the segmentation grid of the prepared target,
+    re-measures), K6 on those unresolved queries against the whole cloud
+    (the SOR rescue), K3 and K4 on the
+    segmentation grid of the prepared target,
     K1 at stage 1 (the source in cell order on the target's grid of 4 x
     res), K5 at adaptive planning's shape (an epoch against the one before,
     no mask: no grid of h = DTinit fits this extent)."""
@@ -1371,9 +1476,16 @@ def rockfall_kernels(res3, pts1: np.ndarray, pts2: np.ndarray,
     res = {}
     h_sor = max(1.5 * np.sqrt((SOR_K + 1) / np.pi), 4.0) * ROCKFALL_RES
     down = voxel_downsample(pts1, ROCKFALL_RES)
-    res["knn_sorted"] = knn_check(
-        CellGrid.from_index(build_grid(down, h_sor), dev),
-        "rockfall, staged SOR grid")
+    sor_grid = CellGrid.from_index(build_grid(down, h_sor), dev)
+    res["knn_sorted"] = knn_check(sor_grid, "rockfall, staged SOR grid")
+    all_q = torch.ones(sor_grid.n, dtype=torch.bool, device=dev)
+    _, _, resolved = nn_cuda.knn_sorted(sor_grid, all_q, SOR_K + 1)
+    bad = sor_grid.points[torch.nonzero(~resolved).squeeze(1)]
+    log(f"rockfall, staged SOR rescue: {bad.shape[0]} of {sor_grid.n} "
+        f"queries unresolved on the grid of h = {h_sor:.3f} m")
+    res["knn_brute"] = k6_check("rockfall staged SOR rescue", bad,
+                                sor_grid.points, SOR_K + 1, "sor_mean",
+                                library=True)
     target = res3.core.patches1.points
     res.update(seg_prop_checks(
         CellGrid.from_index(build_grid(target, _seg_h(KNN_NORMALS,
@@ -2427,7 +2539,7 @@ def four_d_phase(seed: int, k5_ms: float) -> dict:
             tables.append({name: (tmp / f"out_5_{label}" / name).read_bytes()
                            for name in REPRO_TABLES})
 
-    for name in REPLACES:
+    for name in CAMPAIGN_KERNELS:
         require(launches.get(name, 0) > 0,
                 f"kernel {name} was not launched in the 4D campaign")
     require(launches.get("nn1_brute", 0) >= N_EPOCHS - 1,
@@ -2752,9 +2864,10 @@ def bench_phase(seed: int) -> None:
                     f"bench: {name} at {roof['share_pct']}% of its bound")
 
 
-def profile_run(run, label: str) -> None:
+def profile_run(run, label: str) -> float:
     """``run`` once more under torch.profiler: wall time, host phases, the
-    device's busy share and its kernels by time (where the time goes)."""
+    device's busy share and its kernels by time (where the time goes).
+    Returns the busy share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2792,6 +2905,7 @@ def profile_run(run, label: str) -> None:
                              if e.key.startswith("pwicp::")]:
         log(f"profile {label}:   {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
+    return busy / max(wall * 1e3, 1e-9)
 
 
 # ---------------------------------------------------------------------------
@@ -2992,11 +3106,18 @@ def main(argv=None) -> int:
         return 0
     kern = kernel_phases(args.seed)
     kern["nn1_brute"] = k5_phase(args.seed)
-    resolution_check(args.seed)
+    k6_resolution = resolution_check(args.seed)
     pair_phase(args.seed)
     staged_pair_phase(args.seed)
-    sparse_staged_phase(args.seed)
+    k6_nogrid = sparse_staged_phase(args.seed)
     rockfall = rockfall_phase(args.seed)
+    # K6's path is the rockfall pair's staged SOR: its main numbers are
+    # those of the rescue there, its other shapes suffixed
+    kern["knn_brute"] = {
+        **{k: v for k, v in rockfall["knn_brute"].items()
+           if k != "launches"},
+        **{f"{k}_nogrid": v for k, v in k6_nogrid.items()},
+        **{f"{k}_resolution": v for k, v in k6_resolution.items()}}
     reproducible_phase(args.seed)
     variants_phase(args.seed)
     change_screen_phase(args.seed)
@@ -3010,9 +3131,11 @@ def main(argv=None) -> int:
     require(not foreign, f"JAX or the JAX package was imported: {foreign}")
 
     # each kernel's launches in the campaign and its numbers at the
-    # campaign's shapes; "_rockfall": its launches in the rockfall phase and
-    # its numbers at that path's shapes; "launches_fleet": its launches in
-    # each worker of the fleets of 1, 2 and 4
+    # campaign's shapes (K6: in the rockfall phase, at the rescue's shape);
+    # "_rockfall": its launches in the rockfall phase and its numbers at
+    # that path's shapes; "launches_fleet": its launches in each worker of
+    # the fleets of 1, 2 and 4
+    launches["knn_brute"] = rockfall["knn_brute"]["launches"]
     record = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": int(launches.get(name, 0)), **kern[name],
@@ -3021,7 +3144,8 @@ def main(argv=None) -> int:
          "launches_fleet": fleet[name]}
         for name, (src, rep) in REPLACES.items()]}
     for k in record["kernels"]:
-        log(f"{k['name']}: {k['launches']} launches in the campaign, "
+        path = "rockfall phase" if k["name"] == "knn_brute" else "campaign"
+        log(f"{k['name']}: {k['launches']} launches in the {path}, "
             f"{k['ms']:.3f} ms against a bound of {k['bound_ms']:.4f} ms "
             f"({k['bound_by']}): {100 * k['bound_ms'] / k['ms']:.1f}% of it"
             + (f"; {50 * k['bound_ms'] / k['ms']:.1f}% were the operations "

@@ -1,24 +1,26 @@
 """Nearest-neighbour kernels — counterpart of
 ``piecewise_icp_tpu/ops/nn_pallas.py`` (and the brute ``ops/nn.py``).
 
-Three hand-written CUDA kernels (``csrc/range_nn1.cu``,
-``csrc/knn_sorted.cu``, ``csrc/nn1_brute.cu``) with a plain PyTorch version
-of each beside its wrapper:
+Four hand-written CUDA kernels (``csrc/range_nn1.cu``,
+``csrc/knn_sorted.cu``, ``csrc/nn1_brute.cu``, ``csrc/knn_brute.cu``) with
+a plain PyTorch version of each beside its wrapper:
 
 * :func:`range_nn1` (K1) — exact 1-NN of moving queries among the
   cell-sorted targets of a :class:`~.grid_nn.CellGrid`;
 * :func:`knn_sorted` (K2) — exact k-NN of the grid's own points (the SOR
   self-join), ascending, ties to the lowest sorted index;
 * :func:`nn1_brute` (K5) — exact 1-NN of every query against the whole
-  target cloud, with optional query and target masks.
+  target cloud, with optional query and target masks;
+* :func:`knn_brute` (K6) — the K smallest squared distances of every query
+  against the whole target cloud, with multiplicity, and an epilogue over
+  them: the distances (:func:`knn_distances`: resolution estimation, the
+  small-cloud SOR) or the SOR mean (the staged SOR's exact rescue).
 
 A wrapper runs its kernel when handed CUDA tensors and its plain version
 when handed CPU tensors; there is no fallback between the two.  The plain
 versions are chunked brute force, independent of the grid walk by
 construction; both sides agree on every query the contract calls resolved
-(nearest, or k-th nearest, within ``h``).  The brute k-NN distances of
-resolution estimation and the small-cloud SOR (:func:`knn_distances`) are
-plain PyTorch on every device, as the JAX package computes them in XLA.
+(nearest, or k-th nearest, within ``h``).
 
 Distances are coordinate-difference first, ((dx^2 + dy^2) + dz^2) with
 separately rounded products and sums, never the |q|^2 + |t|^2 - 2 q.t
@@ -82,22 +84,9 @@ def knn_distances(queries: torch.Tensor, targets: torch.Tensor, k: int,
                   t_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Distances [Q, k] to the k nearest targets, ascending (inf where
     fewer than k valid targets exist): the distances of ``ops/nn.py:knn``,
-    by chunked brute force with ``torch.topk``.  Callers use only the
-    distances, so the order of tied indices does not matter."""
-    nt = targets.shape[0]
-    kk = min(k, nt)
-    rows = _chunk_rows(nt, targets.device)
-    out = []
-    for s in range(0, queries.shape[0], rows):
-        blk = sqdist(queries[s:s + rows, None, :], targets[None, :, :])
-        if t_mask is not None:
-            blk = torch.where(t_mask[None, :], blk, torch.inf)
-        v = torch.topk(blk, kk, dim=1, largest=False, sorted=True).values
-        out.append(torch.sqrt(torch.clamp(v, min=0.0)))
-    d = torch.cat(out) if out else queries.new_empty((0, kk))
-    if kk < k:
-        d = torch.nn.functional.pad(d, (0, k - kk), value=torch.inf)
-    return d
+    through K6 (:func:`knn_brute`).  Callers use only the distances, so the
+    order of tied indices does not matter."""
+    return knn_brute(queries, targets, k, t_mask, epilogue="dist")
 
 
 def self_neighbours(grid: CellGrid) -> torch.Tensor:
@@ -344,3 +333,119 @@ def nn1_brute(queries: torch.Tensor, targets: torch.Tensor,
     else:
         idx, d2 = nn1_brute_plain(queries, targets, q_mask, t_mask)
     return torch.clamp(idx, min=0), torch.sqrt(torch.clamp(d2, min=0.0))
+
+
+# ---------------------------------------------------------------------------
+# K6: knn_brute
+# ---------------------------------------------------------------------------
+
+KNN_MAX_K = 32
+# what the kernel's last pass writes: the K squared distances, their square
+# roots, or the SOR mean over them
+EPILOGUES = {"d2": 0, "dist": 1, "sor_mean": 2}
+
+
+def _knn_d2_plain(queries: torch.Tensor, targets: torch.Tensor, k: int,
+                  t_mask: torch.Tensor | None) -> torch.Tensor:
+    """The k smallest squared distances [Q, k] of each query, with
+    multiplicity, ascending, by chunked brute force with ``torch.topk``;
+    masked targets and any d2 >= 1e30 (the sentinel's) are not neighbours,
+    empty slots hold +inf."""
+    nt = targets.shape[0]
+    kk = min(k, nt)
+    rows = _chunk_rows(nt, targets.device)
+    out = []
+    for s in range(0, queries.shape[0], rows):
+        blk = sqdist(queries[s:s + rows, None, :], targets[None, :, :])
+        ok = blk < 1e30
+        if t_mask is not None:
+            ok = ok & t_mask[None, :]
+        blk = torch.where(ok, blk, torch.inf)
+        out.append(torch.topk(blk, kk, dim=1, largest=False,
+                              sorted=True).values)
+    d2 = torch.cat(out) if out else queries.new_empty((0, kk))
+    if kk < k:
+        d2 = torch.nn.functional.pad(d2, (0, k - kk), value=torch.inf)
+    return d2
+
+
+def _sor_mean_plain(d2: torch.Tensor) -> torch.Tensor:
+    """The SOR mean over ascending lists of squared distances (the query
+    itself at rank 1, distance 0): for each run of c equal values v, in
+    ascending order, acc = acc + c * sqrt(v); then acc / max(rank - 1, 1),
+    rank the number of finite entries.  These are the float32 operations,
+    in their order, of the JAX package's distinct-value min extraction
+    (``chunk_means``), and of the kernel's last pass."""
+    nq, k = d2.shape
+    valid = torch.isfinite(d2)
+    inf = torch.full((nq, 1), torch.inf, dtype=d2.dtype, device=d2.device)
+    ends = valid & (torch.cat([d2[:, 1:], inf], dim=1) != d2)
+    starts = valid & (torch.cat([-inf, d2[:, :-1]], dim=1) != d2)
+    pos = torch.arange(k, device=d2.device).expand(nq, k)
+    first = torch.cummax(torch.where(starts, pos, 0), dim=1).values
+    run = (pos - first + 1).to(d2.dtype)
+    acc = torch.zeros(nq, dtype=d2.dtype, device=d2.device)
+    for i in range(k):
+        acc = acc + torch.where(ends[:, i], run[:, i] * torch.sqrt(d2[:, i]),
+                                0.0)
+    rank = valid.sum(dim=1).to(d2.dtype)
+    return acc / torch.clamp(rank - 1.0, min=1.0)
+
+
+def knn_brute_plain(queries: torch.Tensor, targets: torch.Tensor, k: int,
+                    t_mask: torch.Tensor | None = None,
+                    epilogue: str = "d2") -> torch.Tensor:
+    """Plain K6: chunked ``sqdist`` + ``torch.topk``, then the epilogue."""
+    _cuda.note_plain("knn_brute", queries)
+    d2 = _knn_d2_plain(queries, targets, k, t_mask)
+    if epilogue == "d2":
+        return d2
+    if epilogue == "dist":
+        return torch.sqrt(d2)
+    return _sor_mean_plain(d2)
+
+
+def _knn_brute_kernel(queries: torch.Tensor, targets: torch.Tensor, k: int,
+                      t_mask: torch.Tensor | None = None,
+                      epilogue: str = "d2") -> torch.Tensor:
+    nq, nt = queries.shape[0], targets.shape[0]
+    dev = targets.device
+    _cuda.check(queries, "queries", torch.float32, (nq, 3), dev)
+    _cuda.check(targets, "targets", torch.float32, (nt, 3), dev)
+    if t_mask is not None:
+        _cuda.check(t_mask, "t_mask", torch.bool, (nt,), dev)
+    cap = _cuda.lib().pwicp_knn_brute_cap(nq, nt, k)
+    if cap < 0:
+        raise ValueError(f"knn_brute: no layout for {nq} queries, {nt} "
+                         f"targets, k = {k}")
+    # scratch of this call: the targets as a structure of arrays and the
+    # partial lists of the target splits
+    scratch = torch.empty(cap, dtype=torch.float32, device=dev)
+    out = torch.empty((nq,) if epilogue == "sor_mean" else (nq, k),
+                      dtype=torch.float32, device=dev)
+    if nq:
+        _cuda.launch("pwicp_knn_brute", "knn_brute", queries.data_ptr(), nq,
+                     targets.data_ptr(),
+                     None if t_mask is None else t_mask.data_ptr(), nt, k,
+                     EPILOGUES[epilogue], scratch.data_ptr(), cap,
+                     out.data_ptr(), device=dev)
+    return out
+
+
+def knn_brute(queries: torch.Tensor, targets: torch.Tensor, k: int,
+              t_mask: torch.Tensor | None = None,
+              epilogue: str = "d2") -> torch.Tensor:
+    """The k smallest squared distances of every query against the whole
+    target cloud (K6), with multiplicity, ascending; masked targets and any
+    d2 >= 1e30 are not neighbours, empty slots hold +inf.  ``epilogue``:
+    ``"d2"`` returns them [Q, k]; ``"dist"`` their square roots [Q, k];
+    ``"sor_mean"`` the SOR mean [Q] (see :func:`_sor_mean_plain`).
+    1 <= k <= 32 on every device."""
+    if not 1 <= k <= KNN_MAX_K:
+        raise ValueError(f"knn_brute supports 1 <= k <= {KNN_MAX_K}, "
+                         f"got {k}")
+    if epilogue not in EPILOGUES:
+        raise ValueError(f"knn_brute: unknown epilogue {epilogue!r}")
+    if queries.is_cuda:
+        return _knn_brute_kernel(queries, targets, k, t_mask, epilogue)
+    return knn_brute_plain(queries, targets, k, t_mask, epilogue)

@@ -21,8 +21,8 @@ from ..device import resolve_device
 from ..utils.logging import gphase, log
 
 from .grid_nn import CellGrid, build_grid
-from .nn_cuda import (_chunk_rows, knn_distances, knn_sorted, nn1_brute,
-                      range_nn1, sqdist)
+from .nn_cuda import (knn_brute, knn_distances, knn_sorted, nn1_brute,
+                      range_nn1)
 
 # Unresolved SOR queries (k+1-th neighbour beyond h: genuinely sparse
 # points, the outliers SOR exists to find) that the unified path re-measures
@@ -54,32 +54,11 @@ def voxel_downsample(points: np.ndarray, leaf: float) -> np.ndarray:
 
 def _exact_knn_means(queries: torch.Tensor, targets: torch.Tensor,
                      k: int) -> torch.Tensor:
-    """Exact mean distance to the k nearest non-self neighbours, by
-    successive DISTINCT-value min extraction with multiplicity (ties
-    advance the rank by their count, like a sorted scan).  The query
-    itself sits at rank 1, distance 0."""
-    rows = _chunk_rows(targets.shape[0], targets.device)
-    out = []
-    for s in range(0, queries.shape[0], rows):
-        d2 = sqdist(queries[s:s + rows, None, :], targets[None, :, :])
-        nq = d2.shape[0]
-        big = torch.tensor(1e30, dtype=d2.dtype, device=d2.device)
-        acc = torch.zeros(nq, dtype=d2.dtype, device=d2.device)
-        rank = torch.zeros_like(acc)
-        cur = torch.full_like(acc, -1.0)
-        budget = float(k + 1)
-        for _ in range(k + 1):
-            nxt = torch.where(d2 > cur[:, None], d2, big).min(dim=1).values
-            cnt = (d2 == nxt[:, None]).sum(dim=1).to(d2.dtype)
-            take = torch.clamp(budget - rank, min=0.0)
-            take = torch.minimum(take, cnt)
-            valid = nxt < big
-            acc = acc + torch.where(
-                valid, take * torch.sqrt(torch.clamp(nxt, min=0.0)), 0.0)
-            rank = rank + torch.where(valid, take, 0.0)
-            cur = torch.where(valid, nxt, cur)
-        out.append(acc / torch.clamp(rank - 1.0, min=1.0))
-    return torch.cat(out)
+    """Exact mean distance to the k nearest non-self neighbours through K6
+    (:func:`knn_brute` with the SOR-mean epilogue): the k+1 smallest
+    distances with multiplicity, ties counted like a sorted scan.  The
+    query itself sits at rank 1, distance 0."""
+    return knn_brute(queries, targets, k + 1, epilogue="sor_mean")
 
 
 def _sor_threshold(mean_d: torch.Tensor, valid: torch.Tensor,
@@ -101,7 +80,7 @@ def sor_mask_sorted(grid: CellGrid, q_mask: torch.Tensor, k: int,
 
     Exact (k+1)-NN distances through K2, mean neighbour distance, global
     mean/std, threshold.  Unresolved queries (k+1-th neighbour beyond h)
-    are re-measured exactly by chunked brute force on the grid's device
+    are re-measured exactly by the brute k-NN (K6) on the grid's device
     when there are at most ``rescue_max`` of them (all of them when it is
     None).  Returns (keep mask in SORTED order, number of unresolved
     queries); the caller must not trust the mask when that number exceeds
@@ -129,7 +108,9 @@ def sor_filter_mask(points: torch.Tensor, mask: torch.Tensor | None = None,
     """Statistical outlier removal by brute k-NN (the small-cloud branch,
     at most 4,096 points, and clouds no grid fits): keep points whose mean
     distance to the ``k`` nearest neighbours is within mean + std_mult *
-    std.  Returns a keep mask aligned with ``points``."""
+    std.  Returns a keep mask aligned with ``points``.  ``k`` is at most 31
+    on every device (the brute k-NN's list holds k+1 <= 32 entries), where
+    the JAX package takes any ``k``."""
     if mask is None:
         mask = torch.ones(points.shape[0], dtype=torch.bool,
                           device=points.device)
@@ -178,7 +159,9 @@ def preprocess_cloud(points: np.ndarray, resolution: float,
                      device: "torch.device | str" = "cuda") -> np.ndarray:
     """Voxel downsample at leaf=resolution, then SOR on ``device`` — the
     staged path (``PCpreprocessing``): the grid SOR above 4,096 points,
-    brute k-NN at or below.  Returns a compact host array."""
+    brute k-NN at or below.  Returns a compact host array.  ``sor_k`` is
+    at most 31 on every device (the k-NN kernels' lists hold sor_k+1 <= 32
+    entries), where the JAX package takes any ``sor_k``."""
     dev = resolve_device(device)
     with gphase("prep.voxel"):
         down = voxel_downsample(points, resolution)
@@ -196,7 +179,7 @@ def preprocess_cloud(points: np.ndarray, resolution: float,
 def estimate_resolution(points: torch.Tensor,
                         mask: torch.Tensor | None = None) -> float:
     """Mean distance to the nearest non-self neighbour
-    (``calPCresolution``), by chunked brute force."""
+    (``calPCresolution``), by the brute k-NN (K6)."""
     if mask is None:
         mask = torch.ones(points.shape[0], dtype=torch.bool,
                           device=points.device)

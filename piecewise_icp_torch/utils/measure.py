@@ -150,6 +150,17 @@ def nn1_brute_bound(nq: int, nt: int, live_pairs: int, q_mask: bool,
                  9 * live_pairs)
 
 
+def knn_brute_bound(nq: int, nt: int, live_pairs: int, t_mask: bool,
+                    out_per_query: int) -> dict:
+    """K6's bound: every query meets every live target (3 differences, 3
+    products, 2 sums and the comparison with the K-th so far; the list's
+    upkeep depends on the order of the data and is not counted); queries
+    and targets (and their mask) in, ``out_per_query`` floats a query out
+    (K distances, or one SOR mean)."""
+    return bound(12 * nq + (12 + t_mask) * nt + 4 * out_per_query * nq,
+                 9 * live_pairs)
+
+
 def truth_mm(t_est: np.ndarray, t_true: np.ndarray, pts: np.ndarray):
     """Mean and max displacement (mm) that T_est @ T_true leaves on
     ``pts`` (ideally none): ``T_true`` moved the source, and the

@@ -192,7 +192,8 @@ def test_line_carries_every_key(line):
     assert line["device"] == {"name": "cpu", "power_limit": None, "count": 0}
     nn = line["nn_kernels"]
     assert nn["n_points"] > 4096
-    for name in ("nn1_brute", "range_nn1", "range_nn1_sorted", "knn_sorted"):
+    for name in ("nn1_brute", "range_nn1", "range_nn1_sorted", "knn_sorted",
+                 "knn_brute"):
         roof = nn["roofline"][name]
         assert roof["bound_ms"] > 0 and roof["share_pct"] is None
         assert roof["bound_by"] in ("bytes", "operations")
@@ -246,6 +247,9 @@ def test_bound_on_a_hand_built_grid():
     # K5, 2 queries x 4 targets, no masks: 24 + 48 in, 16 out; 9 a pair
     k5 = measure.nn1_brute_bound(2, 4, 8, False, False)
     assert k5["bound_ms"] == ms(88, 72) and k5["bound_by"] == "bytes"
+    # K6, 2 queries x 4 targets, one SOR mean a query: 24 + 48 in, 8 out
+    k6 = measure.knn_brute_bound(2, 4, 8, False, 1)
+    assert k6["bound_ms"] == ms(80, 72) and k6["bound_by"] == "bytes"
     # 1e6 pairs of masked K5: 9e6 instructions outlast 34,000 bytes
     big = measure.nn1_brute_bound(1000, 1000, 10**6, True, True)
     assert big["bound_ms"] == ms(34000, 9e6)

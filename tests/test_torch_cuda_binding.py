@@ -67,6 +67,10 @@ def recorded(monkeypatch):
         def pwicp_propagate_ctrl(max_rounds):
             return 2 + 4 * max_rounds
 
+        @staticmethod
+        def pwicp_knn_brute_cap(nq, nt, k):
+            return 3 * nt + nq * k
+
     monkeypatch.setattr(_cuda, "check", lambda *a, **k: None)
     monkeypatch.setattr(_cuda, "lib", lambda: _Lib)
     monkeypatch.setattr(
@@ -79,8 +83,9 @@ def recorded(monkeypatch):
 
 
 @pytest.mark.parametrize("entry", ["pwicp_range_nn1", "pwicp_knn_sorted",
-                                   "pwicp_nn1_brute", "pwicp_seg_stats",
-                                   "pwicp_prop_round", "pwicp_propagate"])
+                                   "pwicp_nn1_brute", "pwicp_knn_brute",
+                                   "pwicp_seg_stats", "pwicp_prop_round",
+                                   "pwicp_propagate"])
 def test_wrapper_passes_its_device_to_launch(recorded, entry):
     grid, calls = recorded
     n = grid.n
@@ -94,6 +99,9 @@ def test_wrapper_passes_its_device_to_launch(recorded, entry):
         nn_cuda._knn_sorted_kernel(grid, qm, 3)
     elif entry == "pwicp_nn1_brute":
         nn_cuda._nn1_brute_kernel(grid.points, grid.points, qm, qm)
+    elif entry == "pwicp_knn_brute":
+        nn_cuda._knn_brute_kernel(grid.points, grid.points, 15, qm,
+                                  "sor_mean")
     elif entry == "pwicp_seg_stats":
         seg_cuda._seg_stats_kernel(grid, qm, 5)
     elif entry == "pwicp_prop_round":
@@ -153,3 +161,30 @@ def test_sweep_patches_k1_constants(tmp_path, monkeypatch, const, value):
             in (dst / "range_nn1.cu").read_text())
     assert ((dst / "common.cuh").read_text()
             == (_cuda.CSRC / "common.cuh").read_text())
+
+
+def test_knn_brute_wrapper_allocates_what_the_kernel_writes(recorded,
+                                                            monkeypatch):
+    """K6's wrapper hands the kernel the scratch its layout asks for and
+    the output of the epilogue ([Q, k], or [Q] for the SOR mean); no
+    query, no launch."""
+    grid, calls = recorded
+    seen = []
+    real = torch.empty
+
+    def spy(*shape, **kw):
+        out = real(*shape, **kw)
+        seen.append(tuple(out.shape))
+        return out
+
+    monkeypatch.setattr(torch, "empty", spy)
+    n = grid.n
+    for epilogue, shape in (("d2", (n, 15)), ("dist", (n, 15)),
+                            ("sor_mean", (n,))):
+        seen.clear()
+        out = nn_cuda._knn_brute_kernel(grid.points, grid.points, 15, None,
+                                        epilogue)
+        assert out.dtype == torch.float32 and tuple(out.shape) == shape
+        assert seen == [(3 * n + 15 * n,), shape]
+    nn_cuda._knn_brute_kernel(grid.points[:0], grid.points, 15)
+    assert [c[0] for c in calls] == ["pwicp_knn_brute"] * 3

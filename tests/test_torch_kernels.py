@@ -493,3 +493,102 @@ def test_patch_set_and_pair_same_bits_in_two_runs(cuda):
     a, b = (register_pair(c1, c2, cfg, device=cuda) for _ in range(2))
     assert a.trans_mat.tobytes() == b.trans_mat.tobytes()
     assert a.vcm.tobytes() == b.vcm.tobytes()
+
+
+def _knn_inputs(rng, nq, tied):
+    """Targets on a lattice of exact ties (and 40 exact duplicates), or a
+    terrain scan; a mask; queries drawn from the targets (self at distance
+    0), half of them jittered; then 200 targets moved to the 1e30
+    sentinel."""
+    if tied:
+        t = np.stack(np.meshgrid(np.arange(40), np.arange(40), np.arange(12),
+                                 indexing="ij"), -1).reshape(-1, 3)
+        t = (0.05 * t).astype(np.float32)
+    else:
+        t = terrain_cloud(rng, n_side=140)
+    t[-40:] = t[:40]
+    tm = rng.uniform(size=len(t)) > 0.05
+    jitter = rng.normal(scale=0.02, size=(nq, 3)) * (
+        rng.uniform(size=(nq, 1)) < 0.5)
+    q = (t[rng.choice(len(t), nq)] + jitter).astype(np.float32)
+    t[rng.choice(len(t) - 40, 200, replace=False)] = 1e30
+    return q, t, tm
+
+
+@pytest.mark.parametrize("k", [2, 15, 16, 32])
+@pytest.mark.parametrize("nq,tied,masked", [(1, True, False),
+                                            (100, True, True),
+                                            (4096, False, True),
+                                            (50000, True, False)])
+def test_knn_brute(cuda, k, nq, tied, masked):
+    """K6 against its plain version at tolerance 0 (no FMA on either side,
+    correctly rounded sqrt and division): the K squared distances, their
+    square roots and the SOR means, from 1 query to 50,000, on exact ties,
+    duplicates, sentinel targets and masks; one launch a call."""
+    rng = np.random.default_rng(nq + k)
+    q, t, tm = _knn_inputs(rng, nq, tied)
+    qq, tt = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
+    mm = torch.from_numpy(tm).to(cuda) if masked else None
+    for epilogue in ("d2", "dist", "sor_mean"):
+        n0 = _cuda.LAUNCHES["knn_brute"]
+        got = nn_cuda.knn_brute(qq, tt, k, mm, epilogue)
+        assert _cuda.LAUNCHES["knn_brute"] == n0 + 1
+        want = nn_cuda.knn_brute_plain(qq, tt, k, mm, epilogue)
+        assert got.shape == want.shape
+        assert _same_bits(got, want), epilogue
+    d2 = nn_cuda.knn_brute(qq, tt, k, mm)
+    assert bool((d2 < 1e30).all())         # no sentinel target met
+
+
+def test_knn_brute_few_targets_and_no_query(cuda):
+    """Fewer valid targets than K (empty slots +inf), no target at all, and
+    no query (no launch)."""
+    rng = np.random.default_rng(2)
+    q, t, _ = _knn_inputs(rng, 300, True)
+    qq = torch.from_numpy(q).to(cuda)
+    tt = torch.from_numpy(t[:10]).to(cuda)
+    mm = torch.zeros(10, dtype=torch.bool, device=cuda)
+    mm[:4] = True
+    for targets, mask in ((tt, mm), (tt, None), (tt[:0], None)):
+        for epilogue in ("d2", "sor_mean"):
+            got = nn_cuda.knn_brute(qq, targets, 15, mask, epilogue)
+            want = nn_cuda.knn_brute_plain(qq, targets, 15, mask, epilogue)
+            assert _same_bits(got, want)
+    assert bool(torch.isinf(nn_cuda.knn_brute(qq, tt, 15, mm)[:, 4:]).all())
+    n0 = _cuda.LAUNCHES["knn_brute"]
+    assert nn_cuda.knn_brute(qq[:0], tt, 15).shape == (0, 15)
+    assert _cuda.LAUNCHES["knn_brute"] == n0
+    with pytest.raises(ValueError):
+        nn_cuda.knn_brute(qq, tt, 33)
+    with pytest.raises(ValueError):
+        nn_cuda.knn_brute(qq.double(), tt, 15)
+
+
+def test_sor_and_resolution_launch_k6(cuda):
+    """The brute SOR, resolution estimation and the staged SOR's rescue of
+    every unresolved query run K6 on the card, never a plain version, and
+    give the CPU's bits."""
+    from piecewise_icp_torch.ops import preprocess as tpre
+
+    rng = np.random.default_rng(9)
+    pts = terrain_cloud(rng, n_side=80)
+    z0 = float(pts[:, 2].max()) + 0.2
+    sparse = np.stack([rng.uniform(0.0, 2.0, 600), rng.uniform(0.0, 2.0, 600),
+                       z0 + rng.exponential(1.0, 600)], 1).astype(np.float32)
+    down = tpre.voxel_downsample(np.concatenate([pts, sparse]), 0.02)
+    _cuda.reset_counts()
+    keep = tpre.sor_keep_mask_device(down, 0.02, 14, 2.7, cuda)
+    brute = tpre.sor_filter_mask(torch.from_numpy(down).to(cuda), None, 14,
+                                 2.7)
+    res = tpre.estimate_resolution(torch.from_numpy(down).to(cuda))
+    assert _cuda.LAUNCHES["knn_brute"] == 3
+    assert not _cuda.PLAIN_ON_CUDA
+    # the K6 results are the CPU's bits; the global sums that follow them
+    # add in another order on the card
+    cpu = torch.device("cpu")
+    keep_cpu = tpre.sor_keep_mask_device(down, 0.02, 14, 2.7, cpu)
+    brute_cpu = tpre.sor_filter_mask(torch.from_numpy(down), None, 14, 2.7)
+    assert (keep == keep_cpu).mean() >= 0.999 and (~keep).sum() > 0
+    assert (brute.cpu() == brute_cpu).float().mean() >= 0.999
+    res_cpu = tpre.estimate_resolution(torch.from_numpy(down))
+    assert abs(res - res_cpu) <= 1e-6 * res_cpu
