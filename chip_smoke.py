@@ -8,8 +8,9 @@ holds each kernel against its plain PyTorch version at the main path's
 shapes (142,884-point synthetic terrain epochs; the grid 1-NN at the shape
 of the stage-1 percentile and at that of adaptive planning; the brute 1-NN
 also at the shape of the stage-1 rescue; the brute k-NN at the shapes of
-resolution estimation, of the SOR of a cloud no grid fits and of the
-rockfall pair's SOR rescue; the three self-join kernels also
+resolution estimation, of the smoke pair's unified SOR rescue, of the SOR
+of a cloud no grid fits and of the rockfall pair's SOR rescue; the three
+self-join kernels also
 on a grid with sentinel points and one cell crowded beyond the window a
 block stages in shared memory, and the grid 1-NN on it too; the label propagation as one round and as the whole loop
 in one launch, also with the round cap reached before convergence), works
@@ -80,13 +81,14 @@ JSON record: the way to run one phase on another tree, such as a parent's.
 above: it times K1-K4 and K4's whole loop at the same shapes (K1 at both of
 its shapes, the stage-1 percentile's and adaptive planning's, as the
 kernel's wrapper, as the public call and under the stage-1 percentile that
-calls it, each with the launches a call puts on the device), for the
-sources as they are
+calls it, each with the launches a call puts on the device) and K6 at its
+five path shapes, for the sources as they are
 (``base``) or with compile-time constants replaced (for example
-``kPropCap=256,kSegWarps=8``, or ``kRangeLanes=16``; ``kRangeWalk=0`` is
-the floor of K1's launch: bounds read, outputs written, no candidate met),
-and prints one JSON line a variant.  This is how the staged caps, the warps
-a block and K1's lanes a query were chosen.
+``kPropCap=256,kSegWarps=8``, ``kRangeLanes=16`` or ``kKnnQpw=2``;
+``kRangeWalk=0`` is the floor of K1's launch: bounds read, outputs
+written, no candidate met; ``kKnnTally=1`` prints K6's counts), and prints
+one JSON line a variant.  This is how the staged caps, the warps a block,
+K1's lanes a query and K6's layout were chosen.
 
 Needs a CUDA device: with none visible it exits non-zero and prints no
 result.
@@ -115,6 +117,7 @@ import time
 import numpy as np
 
 from piecewise_icp_torch.utils.measure import (bound, grid_bytes,
+                                               knn_brute_bound,
                                                knn_sorted_bound,
                                                nn1_brute_bound,
                                                nvidia_smi_line,
@@ -879,13 +882,15 @@ def k6_check(label: str, q, t, k: int, epilogue: str, t_mask=None,
     kernel's time (median of 5), the plain version's (one call), the bound
     from these inputs and, where ``library``, one call of chunked
     ``torch.cdist`` (direct mode) + ``topk``, which the port never calls.
+    The layout the library launches at this shape (blocks, and the warps
+    that split the targets of a query, sharing its bound) is printed and
+    returned.
     These launches are comparisons: callers read their path's counts
     before."""
     import torch
 
     from bench_torch import library_knn
     from piecewise_icp_torch.ops import nn_cuda
-    from piecewise_icp_torch.utils.measure import knn_brute_bound
 
     for ep in ("d2", epilogue):
         kern = nn_cuda._knn_brute_kernel(q, t, k, t_mask, ep)
@@ -897,7 +902,9 @@ def k6_check(label: str, q, t, k: int, epilogue: str, t_mask=None,
     finite = torch.isfinite(plain)
     nq, nt = q.shape[0], t.shape[0]
     live = nt if t_mask is None else int(t_mask.sum())
+    lay = nn_cuda.knn_brute_layout(nq, nt, k)
     res = dict(
+        slices=lay["slices"], blocks=lay["blocks"],
         max_abs_err=max_abs(kern[finite], plain[finite]),
         ms=time_ms(lambda: nn_cuda._knn_brute_kernel(q, t, k, t_mask,
                                                      epilogue)),
@@ -911,7 +918,10 @@ def k6_check(label: str, q, t, k: int, epilogue: str, t_mask=None,
                                     warmup=False)
     lib_ms = ("not timed" if res["library_ms"] is None
               else f"{res['library_ms']:.3f} ms")
-    log(f"K6 knn_brute, {label}: {nq} x {nt}, k = {k}: squared distances "
+    log(f"K6 knn_brute, {label}: {nq} x {nt}, k = {k}; {lay['blocks']} "
+        f"blocks of {lay['warps']} warps, {lay['qpw']} queries a warp, each "
+        f"query's list held by {lay['slices']} warp(s) splitting the "
+        f"targets: squared distances "
         f"and the {epilogue} epilogue equal the plain version (tolerance "
         f"0); kernel {res['ms']:.3f} ms, plain (chunked sqdist + topk) "
         f"{res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms "
@@ -954,6 +964,44 @@ def resolution_check(seed: int) -> dict:
     return k6_check("resolution estimation", p, p, 2, "dist",
                     t_mask=torch.ones(p.shape[0], dtype=torch.bool,
                                       device="cuda"))
+
+
+def unified_rescue_inputs(seed: int):
+    """The unified SOR rescue's inputs on the smoke pair's first cloud
+    (what ``preprocess_segment_device`` hands K6): the queries K2 leaves
+    unresolved on the grid of the voxelised, centred cloud (at most the
+    rescue budget, 4,096), and every point."""
+    import torch
+
+    from piecewise_icp_torch.models.segmentation_device import _seg_h
+    from piecewise_icp_torch.ops import nn_cuda
+    from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
+    from piecewise_icp_torch.ops.preprocess import (_SOR_RESCUE,
+                                                    voxel_downsample)
+
+    c1, _, _ = smoke_pair(seed)
+    down = voxel_downsample(c1, RES).astype(np.float64)
+    pts = (down - down.mean(axis=0)).astype(np.float32)
+    grid = CellGrid.from_index(build_grid(pts, _seg_h(KNN_NORMALS, RES)),
+                               torch.device("cuda"))
+    all_q = torch.ones(grid.n, dtype=torch.bool, device="cuda")
+    _, _, resolved = nn_cuda.knn_sorted(grid, all_q, SOR_K + 1)
+    bad = torch.nonzero(~resolved).squeeze(1)
+    log(f"unified SOR rescue: {bad.shape[0]} of {grid.n} queries "
+        f"unresolved on the grid of h = {grid.h:.4f} m (budget "
+        f"{_SOR_RESCUE})")
+    require(0 < bad.shape[0] <= _SOR_RESCUE,
+            "unified SOR rescue: no query, or more than the budget, left "
+            "to K6")
+    return grid.points[bad], grid.points
+
+
+def unified_rescue_check(seed: int) -> dict:
+    """K6 at the unified SOR rescue's shape (``unified_rescue_inputs``),
+    k + 1 = 15, the SOR mean, against its plain version."""
+    q, t = unified_rescue_inputs(seed)
+    return k6_check("unified SOR rescue", q, t, SOR_K + 1, "sor_mean",
+                    library=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1452,6 +1500,28 @@ def rockfall_phase(seed: int) -> dict:
     return results
 
 
+def rockfall_rescue_inputs(pts1: np.ndarray):
+    """The staged SOR's grid of the voxelised rockfall epoch and the
+    queries K2 leaves unresolved on it, which K6 re-measures against the
+    whole cloud."""
+    import torch
+
+    from piecewise_icp_torch.ops import nn_cuda
+    from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
+    from piecewise_icp_torch.ops.preprocess import voxel_downsample
+
+    h_sor = max(1.5 * np.sqrt((SOR_K + 1) / np.pi), 4.0) * ROCKFALL_RES
+    down = voxel_downsample(pts1, ROCKFALL_RES)
+    sor_grid = CellGrid.from_index(build_grid(down, h_sor),
+                                   torch.device("cuda"))
+    all_q = torch.ones(sor_grid.n, dtype=torch.bool, device="cuda")
+    _, _, resolved = nn_cuda.knn_sorted(sor_grid, all_q, SOR_K + 1)
+    bad = sor_grid.points[torch.nonzero(~resolved).squeeze(1)]
+    log(f"rockfall, staged SOR rescue: {bad.shape[0]} of {sor_grid.n} "
+        f"queries unresolved on the grid of h = {h_sor:.3f} m")
+    return sor_grid, bad
+
+
 def rockfall_kernels(res3, pts1: np.ndarray, pts2: np.ndarray,
                      sv: float) -> dict:
     """K1-K6 against their plain versions at the rockfall path's shapes
@@ -1470,19 +1540,11 @@ def rockfall_kernels(res3, pts1: np.ndarray, pts2: np.ndarray,
     from piecewise_icp_torch.ops import nn_cuda
     from piecewise_icp_torch.ops.grid_nn import (MAX_GRID_CELLS, CellGrid,
                                                  build_grid)
-    from piecewise_icp_torch.ops.preprocess import voxel_downsample
 
     dev = torch.device("cuda")
     res = {}
-    h_sor = max(1.5 * np.sqrt((SOR_K + 1) / np.pi), 4.0) * ROCKFALL_RES
-    down = voxel_downsample(pts1, ROCKFALL_RES)
-    sor_grid = CellGrid.from_index(build_grid(down, h_sor), dev)
+    sor_grid, bad = rockfall_rescue_inputs(pts1)
     res["knn_sorted"] = knn_check(sor_grid, "rockfall, staged SOR grid")
-    all_q = torch.ones(sor_grid.n, dtype=torch.bool, device=dev)
-    _, _, resolved = nn_cuda.knn_sorted(sor_grid, all_q, SOR_K + 1)
-    bad = sor_grid.points[torch.nonzero(~resolved).squeeze(1)]
-    log(f"rockfall, staged SOR rescue: {bad.shape[0]} of {sor_grid.n} "
-        f"queries unresolved on the grid of h = {h_sor:.3f} m")
     res["knn_brute"] = k6_check("rockfall staged SOR rescue", bad,
                                 sor_grid.points, SOR_K + 1, "sor_mean",
                                 library=True)
@@ -1952,9 +2014,9 @@ def _profiled(run) -> dict:
                 busy_ms=sum(e.self_device_time_total for e in rows) / 1e3,
                 nccl_ms=sum(e.self_device_time_total for e in nccl) / 1e3,
                 nccl_launches=sum(e.count for e in nccl),
-                kernels={e.key.split("(")[0]: (e.self_device_time_total
-                                               / 1e3, e.count)
-                         for e in rows if e.key.startswith("pwicp::")})
+                kernels={port_kernel(e.key): (e.self_device_time_total
+                                              / 1e3, e.count)
+                         for e in rows if port_kernel(e.key)})
 
 
 def _sharded_rank(group, t_launch, c1, c2, mis, conf_4d, conf_pair,
@@ -2070,9 +2132,16 @@ def _within(label: str, got: dict, want: dict,
 class AppsSampler:
     """``nvidia-smi --query-compute-apps=pid,gpu_bus_id,used_memory`` and
     each card's ``memory.used`` about every 0.5 s while the ``with`` block
-    runs (the processes that hold a context, and where)."""
+    runs (the processes that hold a context, and where), and the cards on
+    which this process holds a CUDA context, read from the driver
+    (``context_devices``) before the block and at every sample."""
 
     def __enter__(self):
+        from piecewise_icp_torch.parallel.distributed import context_devices
+
+        self.context_devices = context_devices
+        self.own_before = context_devices()
+        self.own = set(self.own_before)
         self.apps, self.mem, self.done = [], {}, threading.Event()
         self.thread = threading.Thread(target=self._poll, daemon=True)
         self.thread.start()
@@ -2080,6 +2149,7 @@ class AppsSampler:
 
     def _poll(self) -> None:
         while not self.done.wait(0.5):
+            self.own.update(self.context_devices())
             apps = subprocess.run(
                 ["nvidia-smi", "--query-compute-apps=pid,gpu_bus_id,"
                  "used_memory", "--format=csv,noheader"],
@@ -2099,7 +2169,18 @@ class AppsSampler:
         most = max(self.apps, key=len, default=[])
         return (f"{len(self.apps)} samples; at most {len(most)} processes "
                 f"held a context at once ({most}); memory.used peak by card "
-                f"{self.mem}")
+                f"{self.mem}; this process's CUDA contexts on cards "
+                f"{self.own_before} before, {sorted(self.own)} while the "
+                f"block ran; NCCL_NVLS_ENABLE "
+                f"{os.environ.get('NCCL_NVLS_ENABLE', 'unset')}")
+
+
+def port_kernel(key: str) -> "str | None":
+    """The short name of one of the port's kernels from a profiler row's
+    key (``pwicp::name``, or ``void pwicp::name<L>(...)`` for a template),
+    else None."""
+    name = key.split("(")[0].removeprefix("void ")
+    return name if name.startswith("pwicp::") else None
 
 
 def _secs(xs) -> str:
@@ -2902,7 +2983,7 @@ def profile_run(run, label: str) -> float:
     # the ten longest, and every kernel of the port (its time a launch on
     # this path, without the wrapper's host work)
     for e in by_time[:10] + [e for e in by_time[10:]
-                             if e.key.startswith("pwicp::")]:
+                             if port_kernel(e.key)]:
         log(f"profile {label}:   {e.self_device_time_total / 1e3:9.3f} ms  "
             f"x{e.count:<5d} {e.key[:90]}")
     return busy / max(wall * 1e3, 1e-9)
@@ -2935,6 +3016,57 @@ def patched_sources(variant: str, tmp: pathlib.Path) -> pathlib.Path:
     return dst
 
 
+def k6_shapes(seed: int, tmp: str) -> dict:
+    """K6's inputs at its five path shapes: ``unified``, the smoke pair's
+    unified SOR rescue (``unified_rescue_inputs``); ``rescue_4096``,
+    ``bench_torch.py``'s (4,096 random points of the voxelised bench epoch
+    against all of it, k + 1 = 15, the SOR mean); ``rockfall``, the
+    rockfall pair's staged SOR rescue (series written into ``tmp``);
+    ``nogrid``, the sparse staged phase's cloud no grid fits, n x n, k + 1
+    = 15, distances, the all-true mask; ``resolution``, the smoke epoch n x
+    n, k = 2, distances, the all-true mask.  Each is (queries, targets, k,
+    target mask, epilogue)."""
+    import torch
+
+    from bench_torch import KNN_RESCUE, bench_pair
+    from piecewise_icp_torch.io import read_pcd
+    from piecewise_icp_torch.ops.preprocess import voxel_downsample
+    from piecewise_icp_torch.utils import rockfall
+    from piecewise_icp_torch.utils.synth import make_pair, terrain_cloud
+
+    def cuda(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to("cuda")
+
+    def all_true(p):
+        return torch.ones(p.shape[0], dtype=torch.bool, device="cuda")
+
+    down = voxel_downsample(bench_pair(seed)[0], RES)
+    q = cuda(down)
+    pick = np.sort(np.random.default_rng(0).choice(
+        len(down), min(KNN_RESCUE, len(down)), replace=False))
+    scans = rockfall.generate_rockfall(
+        tmp, ROCKFALL_EPOCHS, seed=ROCKFALL_SEED, extent=ROCKFALL_EXTENT,
+        res=ROCKFALL_RES)
+    sor_grid, bad = rockfall_rescue_inputs(
+        read_pcd(os.path.join(scans, sorted(os.listdir(scans))[0])))
+    # the cloud of sparse_staged_phase with its far point
+    rng = np.random.default_rng(seed + 3)
+    c1 = make_pair(rng, PARAMS, n_side=N_SIDE, extent=EXTENT)[0]
+    nogrid = cuda(np.concatenate([
+        voxel_downsample(_with_sparse_points(rng, c1), RES),
+        np.full((1, 3), 1e4, np.float32)]))
+    epoch = cuda(terrain_cloud(np.random.default_rng(seed), n_side=N_SIDE,
+                               extent=EXTENT))
+    return {
+        "unified": (*unified_rescue_inputs(seed), SOR_K + 1, None,
+                    "sor_mean"),
+        "rescue_4096": (q[cuda(pick)], q, SOR_K + 1, None, "sor_mean"),
+        "rockfall": (bad, sor_grid.points, SOR_K + 1, None, "sor_mean"),
+        "nogrid": (nogrid, nogrid, SOR_K + 1, all_true(nogrid), "dist"),
+        "resolution": (epoch, epoch, 2, all_true(epoch), "dist"),
+    }
+
+
 def kernel_times(variant: str, seed: int) -> dict:
     """K1-K4 and K4's whole loop at the smoke epoch's shapes, built from the
     sources as they are (``base``) or with constants replaced.  For each:
@@ -2943,10 +3075,18 @@ def kernel_times(variant: str, seed: int) -> dict:
     without a wait (where a kernel is shorter than its wrapper this measures
     the wrapper); ``device``, the time a call of the port's own kernels
     under the profiler, and ``launches``, the kernels and copies a call
-    puts on the device (PyTorch's included).  ``sig`` hashes K3's t2 and counts, K4's labels after three
-    rounds and K1's ids and distances at both shapes: equal across
-    variants that compute the same function (``kRangeWalk=0``, the floor
-    of K1's launch, meets no candidate and does not)."""
+    puts on the device (PyTorch's included), with ``rows`` the device time
+    a call of each of the port's kernels by name; ``sm_mhz``, the SM clock
+    sampled every 100 ms meanwhile.  K6 is timed the same at its five path
+    shapes (``k6_shapes``), each with its bound and share under ``k6``.
+    ``sig`` hashes K3's t2 and counts, K4's labels after three rounds, K1's
+    ids and distances at both shapes and K6's outputs at its five: equal
+    across variants that compute the same function (``kRangeWalk=0``, the
+    floor of K1's launch, meets no candidate and does not).  A variant
+    with ``kKnnTally=1`` calls K6 once at each shape instead, and its
+    kernel prints a line of counts a call (``knn_tally``): candidates, the
+    queries' steps at which a group passed, the insertions, the SMs used
+    and the blocks' mean duration beside the kernel's span."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -2976,9 +3116,12 @@ def kernel_times(variant: str, seed: int) -> dict:
             torch.cuda.synchronize()
         rows = [e for e in prof.key_averages()
                 if e.device_type != DeviceType.CPU]
-        return {"device": sum(e.self_device_time_total for e in rows
-                              if e.key.startswith("pwicp::")) / 1e3 / reps,
-                "launches": sum(e.count for e in rows) / reps}
+        ours = [e for e in rows if port_kernel(e.key)]
+        return {"device": sum(e.self_device_time_total
+                              for e in ours) / 1e3 / reps,
+                "launches": sum(e.count for e in rows) / reps,
+                "rows": {port_kernel(e.key): e.self_device_time_total
+                         / 1e3 / reps for e in ours}}
 
     with tempfile.TemporaryDirectory() as tmp:
         if variant != "base":
@@ -3029,14 +3172,47 @@ def kernel_times(variant: str, seed: int) -> dict:
         k1 = b"".join(a.cpu().numpy().tobytes()
                       for g, qq in ((grid1, q1), (grid_p, q_p))
                       for a in nn_cuda.range_nn1(qq, all_q, g)[:2])
+        k6_in = k6_shapes(seed, tmp)
+        k6 = {}
+        for name, (q, t, k, m, ep) in k6_in.items():
+            fns[f"knn_brute_{name}"] = (
+                lambda q=q, t=t, k=k, m=m, ep=ep:
+                nn_cuda._knn_brute_kernel(q, t, k, m, ep))
+            live = t.shape[0] if m is None else int(m.sum())
+            k6[name] = {"nq": q.shape[0], "nt": t.shape[0], "k": k,
+                        **knn_brute_bound(q.shape[0], t.shape[0],
+                                          q.shape[0] * live, m is not None,
+                                          1 if ep == "sor_mean" else k)}
+        k6_out = b"".join(fns[f"knn_brute_{name}"]().cpu().numpy().tobytes()
+                          for name in k6_in)
         sig = hashlib.sha1(ks[:, :2].cpu().numpy().tobytes()
                            + state[:, 6].cpu().numpy().tobytes()
-                           + k1).hexdigest()[:12]
+                           + k1 + k6_out).hexdigest()[:12]
+        if "kKnnTally=1" in variant:
+            # the kernel prints its counts: one call a shape
+            for name in k6_in:
+                fns[f"knn_brute_{name}"]()
+                torch.cuda.synchronize()
+            return {"variant": variant, "card": nvidia_smi_line(),
+                    "sig": sig, "k6": k6}
+        clocks = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,"
+             "nounits", "-lms", "100"], stdout=subprocess.PIPE,
+            stderr=subprocess.DEVNULL, text=True)
         ms = {name: {"single": time_ms(fn),
                      "back_to_back": back_to_back_ms(fn),
                      **on_device(fn)} for name, fn in fns.items()}
+        clocks.terminate()
+        mhz = [int(v) for v in clocks.communicate(timeout=30)[0].split()
+               if v.isdigit()]
+    for name, v in k6.items():
+        v["share_pct"] = 100 * v["bound_ms"] / ms[f"knn_brute_{name}"][
+            "single"]
     return {"variant": variant, "card": nvidia_smi_line(), "sig": sig,
-            "ms": ms}
+            "sm_mhz": {"samples": len(mhz),
+                       "median": statistics.median(mhz) if mhz else None,
+                       "min": min(mhz, default=None)},
+            "ms": ms, "k6": k6}
 
 
 # the phases ``--only`` may name (those that need no kernel timings)
@@ -3107,6 +3283,7 @@ def main(argv=None) -> int:
     kern = kernel_phases(args.seed)
     kern["nn1_brute"] = k5_phase(args.seed)
     k6_resolution = resolution_check(args.seed)
+    k6_unified = unified_rescue_check(args.seed)
     pair_phase(args.seed)
     staged_pair_phase(args.seed)
     k6_nogrid = sparse_staged_phase(args.seed)
@@ -3117,7 +3294,8 @@ def main(argv=None) -> int:
         **{k: v for k, v in rockfall["knn_brute"].items()
            if k != "launches"},
         **{f"{k}_nogrid": v for k, v in k6_nogrid.items()},
-        **{f"{k}_resolution": v for k, v in k6_resolution.items()}}
+        **{f"{k}_resolution": v for k, v in k6_resolution.items()},
+        **{f"{k}_unified": v for k, v in k6_unified.items()}}
     reproducible_phase(args.seed)
     variants_phase(args.seed)
     change_screen_phase(args.seed)

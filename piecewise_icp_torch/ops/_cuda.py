@@ -67,6 +67,7 @@ _SIGNATURES = {
     "pwicp_nn1_tile": [],
     "pwicp_knn_brute": [_P, _I, _P, _P, _I, _I, _I, _P, _I, _P, _P],
     "pwicp_knn_brute_cap": [_I, _I, _I],
+    "pwicp_knn_brute_layout": [_I, _I, _I, _P],
     "pwicp_knn_cap": [],
     "pwicp_seg_cap": [],
     "pwicp_prop_cap": [],

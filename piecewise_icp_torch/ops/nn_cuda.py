@@ -29,6 +29,7 @@ identity (it loses ~1e-4 absolute in f32 at metre scale).
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -418,8 +419,8 @@ def _knn_brute_kernel(queries: torch.Tensor, targets: torch.Tensor, k: int,
     if cap < 0:
         raise ValueError(f"knn_brute: no layout for {nq} queries, {nt} "
                          f"targets, k = {k}")
-    # scratch of this call: the targets as a structure of arrays and the
-    # partial lists of the target splits
+    # scratch of this call: the targets as a structure of arrays, laid out
+    # in the kernel's scan order
     scratch = torch.empty(cap, dtype=torch.float32, device=dev)
     out = torch.empty((nq,) if epilogue == "sor_mean" else (nq, k),
                       dtype=torch.float32, device=dev)
@@ -430,6 +431,19 @@ def _knn_brute_kernel(queries: torch.Tensor, targets: torch.Tensor, k: int,
                      EPILOGUES[epilogue], scratch.data_ptr(), cap,
                      out.data_ptr(), device=dev)
     return out
+
+
+def knn_brute_layout(nq: int, nt: int, k: int) -> dict:
+    """The layout K6 launches for nq queries, nt targets and k slots, read
+    from the built library: target tiles, queries a warp, warps sharing a
+    query's targets (``slices``), queries a block, blocks, warps a
+    block."""
+    out = (ctypes.c_int * 6)()
+    if _cuda.lib().pwicp_knn_brute_layout(nq, nt, k, out) < 0:
+        raise ValueError(f"knn_brute: no layout for {nq} queries, {nt} "
+                         f"targets, k = {k}")
+    return dict(zip(("n_tiles", "qpw", "slices", "block_queries", "blocks",
+                     "warps"), out))
 
 
 def knn_brute(queries: torch.Tensor, targets: torch.Tensor, k: int,

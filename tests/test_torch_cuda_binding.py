@@ -47,7 +47,7 @@ def test_signature_matches_declaration(name):
     pointer, ``c_int`` / ``c_float`` for the scalars."""
     declared = _declarations()[name]
     assert _cuda._SIGNATURES[name] == declared
-    launched = not name.endswith(("_cap", "_tile", "_ctrl"))
+    launched = not name.endswith(("_cap", "_tile", "_ctrl", "_layout"))
     if launched:
         assert declared[-1] is ctypes.c_void_p      # the stream
 
@@ -69,7 +69,7 @@ def recorded(monkeypatch):
 
         @staticmethod
         def pwicp_knn_brute_cap(nq, nt, k):
-            return 3 * nt + nq * k
+            return 3 * 1024 * max(1, -(-nt // 1024))
 
     monkeypatch.setattr(_cuda, "check", lambda *a, **k: None)
     monkeypatch.setattr(_cuda, "lib", lambda: _Lib)
@@ -163,11 +163,32 @@ def test_sweep_patches_k1_constants(tmp_path, monkeypatch, const, value):
             == (_cuda.CSRC / "common.cuh").read_text())
 
 
+@pytest.mark.parametrize("const,value", [
+    ("kKnnBruteWarps", 4), ("kKnnQpw", 2), ("kKnnTile", 512),
+    ("kKnnWantBlocks", 256), ("kKnnStages", 2), ("kKnnMinBlocks", 5),
+    ("kKnnTally", 1)])
+def test_sweep_patches_k6_constants(tmp_path, monkeypatch, const, value):
+    """The constants by which ``--sweep`` varies K6 (warps a block, the
+    most queries a warp, the tile, the blocks wanted before a warp takes
+    fewer queries, the tiles in the ring, the blocks an SM of the launch
+    bounds, the counting variant) are each defined once, in K6's source,
+    and no other source changes."""
+    monkeypatch.syspath_prepend(str(_cuda.CSRC.parent.parent))
+    import chip_smoke
+
+    dst = chip_smoke.patched_sources(f"{const}={value}", tmp_path)
+    assert (f"constexpr int {const} = {value};"
+            in (dst / "knn_brute.cu").read_text())
+    assert ((dst / "nn1_brute.cu").read_text()
+            == (_cuda.CSRC / "nn1_brute.cu").read_text())
+
+
 def test_knn_brute_wrapper_allocates_what_the_kernel_writes(recorded,
                                                             monkeypatch):
-    """K6's wrapper hands the kernel the scratch its layout asks for and
-    the output of the epilogue ([Q, k], or [Q] for the SOR mean); no
-    query, no launch."""
+    """K6's wrapper hands the kernel the scratch its layout asks for (the
+    targets' structure of arrays: for these 400 points one tile) and the
+    output of the epilogue ([Q, k], or [Q] for the SOR mean); no query, no
+    launch."""
     grid, calls = recorded
     seen = []
     real = torch.empty
@@ -185,6 +206,6 @@ def test_knn_brute_wrapper_allocates_what_the_kernel_writes(recorded,
         out = nn_cuda._knn_brute_kernel(grid.points, grid.points, 15, None,
                                         epilogue)
         assert out.dtype == torch.float32 and tuple(out.shape) == shape
-        assert seen == [(3 * n + 15 * n,), shape]
+        assert seen == [(3 * 1024,), shape]   # one tile of targets
     nn_cuda._knn_brute_kernel(grid.points[:0], grid.points, 15)
     assert [c[0] for c in calls] == ["pwicp_knn_brute"] * 3

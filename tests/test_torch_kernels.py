@@ -540,6 +540,97 @@ def test_knn_brute(cuda, k, nq, tied, masked):
     assert bool((d2 < 1e30).all())         # no sentinel target met
 
 
+def _bound_inputs(rng, case):
+    """~130k targets and 300 queries (too few to fill the card a warp a
+    query: 8 warps split the targets of each query and share its bound).
+    ``lattice_ties``: a 51 x 51 x 50 integer lattice (exact squared
+    distances), queries on lattice points and at cell centres, so the K-th
+    distance is tied among shells of 6 to 24 points that the strided
+    layout spreads over different slices, with 300 targets doubled.  ``duplicates_masked``: a terrain scan with 2,000
+    targets doubled, 5% masked, 200 at the 1e30 sentinel; queries from the
+    targets, half jittered.  ``all_masked``: the same with every target
+    masked."""
+    if case == "lattice_ties":
+        t = np.stack(np.meshgrid(np.arange(51), np.arange(51), np.arange(50),
+                                 indexing="ij"), -1).reshape(-1, 3)
+        t = t.astype(np.float32)
+        t[rng.choice(len(t), 300, replace=False)] = t[:300]
+        q = t[rng.choice(len(t), 300, replace=False)].copy()
+        q[::2] += 0.5
+        return q, t, None
+    t = terrain_cloud(rng, n_side=361)
+    t[-2000:] = t[:2000]
+    q = t[rng.choice(len(t), 300, replace=False)] + (
+        rng.normal(scale=0.02, size=(300, 3))
+        * (rng.uniform(size=(300, 1)) < 0.5)).astype(np.float32)
+    t[rng.choice(len(t) - 2000, 200, replace=False)] = 1e30
+    tm = rng.uniform(size=len(t)) > 0.05
+    if case == "all_masked":
+        tm[:] = False
+    return q.astype(np.float32), t, tm
+
+
+@pytest.mark.parametrize("k", [1, 14, 15, 16, 32])
+@pytest.mark.parametrize("case", ["lattice_ties", "duplicates_masked",
+                                  "all_masked"])
+def test_knn_brute_shared_bound(cuda, k, case):
+    """K6 with the targets of each query split over 8 warps that share its
+    pruning bound (the layout the library launches at this shape), against
+    its plain version at tolerance 0 for every epilogue: ties at the K-th
+    value across the warps' slices, duplicate targets, masks, and every
+    target masked (the bound never leaves the sentinel: every slot +inf,
+    SOR mean 0)."""
+    rng = np.random.default_rng(k + 100 * len(case))
+    q, t, tm = _bound_inputs(rng, case)
+    assert nn_cuda.knn_brute_layout(len(q), len(t), k)["slices"] == 8
+    qq, tt = torch.from_numpy(q).to(cuda), torch.from_numpy(t).to(cuda)
+    mm = None if tm is None else torch.from_numpy(tm).to(cuda)
+    for epilogue in ("d2", "dist", "sor_mean"):
+        n0 = _cuda.LAUNCHES["knn_brute"]
+        got = nn_cuda.knn_brute(qq, tt, k, mm, epilogue)
+        assert _cuda.LAUNCHES["knn_brute"] == n0 + 1
+        want = nn_cuda.knn_brute_plain(qq, tt, k, mm, epilogue)
+        assert _same_bits(got, want), epilogue
+    d2 = nn_cuda.knn_brute(qq, tt, k, mm)
+    if case == "all_masked":
+        assert bool(torch.isinf(d2).all())
+    else:
+        assert bool((d2 < 1e30).all())
+    if case == "lattice_ties" and k < 32:
+        # the K-th value is tied with the (K+1)-th: the cut falls in a tie
+        nxt = nn_cuda.knn_brute_plain(qq, tt, k + 1, mm)
+        assert bool((nxt[:, k] == nxt[:, k - 1]).any())
+
+
+@pytest.mark.parametrize("shape", [
+    # (queries, targets): queries a warp, warps sharing a query, blocks
+    ((4096, 129097), (2, 2, 512)),      # bench_torch.py's rescue
+    ((12159, 101271), (3, 1, 507)),     # the rockfall SOR rescue
+    ((135314, 135314), (4, 1, 4229)),   # the no-grid SOR
+    ((142884, 142884), (4, 1, 4466)),   # resolution estimation
+    ((1, 129097), (2, 8, 1)),           # the smoke pair's rescue
+    ((300, 130050), (2, 8, 150)),       # test_knn_brute_shared_bound
+])
+def test_knn_brute_layout_at_the_path_shapes(cuda, shape):
+    """K6's layout, as the built library launches it, at the shapes of its
+    paths, as ``PERF.md`` cites it: a warp takes 4 queries where that still
+    gives 480 blocks of 8 warps (about a wave at 4 blocks on each of 132
+    SMs), else 3, else 2, and below that the warps of a block split the
+    tiles, 2, 4 or 8 warps holding one query's list; the scratch is the
+    targets' structure of arrays, whole tiles of 1,024."""
+    (nq, nt), want = shape
+    lay = nn_cuda.knn_brute_layout(nq, nt, 15)
+    assert (lay["qpw"], lay["slices"], lay["blocks"]) == want
+    assert lay["warps"] == 8
+    assert lay["blocks"] * lay["block_queries"] >= nq > (
+        lay["blocks"] - 1) * lay["block_queries"]
+    assert lay["block_queries"] * lay["slices"] == lay["qpw"] * lay["warps"]
+    assert lay["slices"] == lay["warps"] or lay["blocks"] >= 480
+    assert lay["n_tiles"] == -(-nt // 1024)
+    assert (_cuda.lib().pwicp_knn_brute_cap(nq, nt, 15)
+            == 3 * 1024 * lay["n_tiles"])
+
+
 def test_knn_brute_few_targets_and_no_query(cuda):
     """Fewer valid targets than K (empty slots +inf), no target at all, and
     no query (no launch)."""
