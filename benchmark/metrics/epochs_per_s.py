@@ -1,0 +1,11 @@
+"""epochs_per_s: epochs registered (a campaign's pairs), over the time from
+the window's opening to the end of the last campaign started in it."""
+
+from benchmark import stats
+
+
+def read(ctx):
+    if not ctx.done:
+        return None
+    return stats.window_rate(sum(r["units"] for r in ctx.done), ctx.t_open,
+                             ctx.t_last_end)

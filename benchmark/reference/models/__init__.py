@@ -1,0 +1,1 @@
+"""Part of the benchmark's plain reference (see ``benchmark.reference``)."""
