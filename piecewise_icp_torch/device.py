@@ -35,16 +35,18 @@ def resolve_device(device: "str | torch.device") -> torch.device:
 
 
 def fetch(*tensors: torch.Tensor) -> list:
-    """ONE device-to-host transfer for several tensors: each is flattened
-    to float64 (exact for float32, bool and int32 values), concatenated,
-    copied once, and split back into numpy arrays of the original shapes
-    and dtypes."""
+    """ONE device-to-host transfer (one counted sync) for several tensors:
+    each is flattened to float64 (exact for float32, bool and int32
+    values), concatenated, copied once, and split back into numpy arrays
+    of the original shapes and dtypes."""
     import numpy as np
+
+    from .utils.logging import to_host
 
     if not tensors:
         return []
     flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors])
-    host = flat.cpu().numpy()
+    host = to_host(flat).numpy()
     out, o = [], 0
     for t in tensors:
         n = t.numel()

@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from ..utils.errors import FileFormatError
+from ..utils.logging import gphase
 
 _TYPE_MAP = {
     ("F", 4): np.float32, ("F", 8): np.float64,
@@ -129,12 +130,19 @@ def _lzf_compress(data: bytes) -> bytes:
 
 
 def read_pcd(path: str | pathlib.Path) -> np.ndarray:
-    """Read a PCD file and return float32 xyz points of shape ``[N, 3]``.
+    """Read a PCD file and return float32 xyz points of shape ``[N, 3]``,
+    in the span ``io.read_pcd`` (meta ``bytes``, the file's size).
 
     Points with non-finite coordinates are dropped (PCL marks invalid returns
     as NaN; the reference's dense synthetic data has none).
     """
-    raw = pathlib.Path(path).read_bytes()
+    path = pathlib.Path(path)
+    with gphase("io.read_pcd", bytes=path.stat().st_size):
+        return _read_pcd(path)
+
+
+def _read_pcd(path: pathlib.Path) -> np.ndarray:
+    raw = path.read_bytes()
     hdr, offset = _parse_header(raw)
     n_points = int(hdr["POINTS"][0])
     mode = hdr["DATA"][0].lower()

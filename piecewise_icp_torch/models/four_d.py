@@ -29,7 +29,7 @@ import torch
 from ..config import PiecewiseICPConfig
 from ..io import formats, read_pcd, scan_epoch_folder
 from ..utils.errors import PwICPError
-from ..utils.logging import PhaseTimer, gphase, log
+from ..utils.logging import PhaseTimer, gphase, log, to_device
 
 from ..device import resolve_device
 from ..ops.grid_nn import CellGrid, build_grid
@@ -46,8 +46,16 @@ def _mode_name(pair_mode: int) -> str:
     return "Fixed_" if pair_mode > 0 else "Adaptive_"
 
 
-@functools.lru_cache(maxsize=8)
 def _load_cloud_cached(path: str) -> np.ndarray:
+    """The cloud of ``path``, read again whenever the file's modification
+    time or size changed since it was last read (a cache of 8 clouds,
+    shared by the callers: they must not write into it)."""
+    st = os.stat(path)
+    return _read_cloud(path, st.st_mtime_ns, st.st_size)
+
+
+@functools.lru_cache(maxsize=8)
+def _read_cloud(path: str, mtime_ns: int, size: int) -> np.ndarray:
     return read_pcd(path)
 
 
@@ -82,12 +90,13 @@ def adaptive_pair_sequence(file_list: Sequence[str], start_epoch: int,
     def cloud(i: int) -> torch.Tensor:
         if i not in clouds:
             pts = read_pcd(file_list[i])
-            clouds[i] = torch.from_numpy(pts).to(dev)
-            try:
-                grids[i] = CellGrid.from_index(build_grid(pts, h=dt_init),
-                                               dev)
-            except ValueError:
-                grids[i] = None     # the dense grid is infeasible here
+            clouds[i] = to_device(pts, dev)
+            with gphase("plan.grid"):
+                try:
+                    grids[i] = CellGrid.from_index(
+                        build_grid(pts, h=dt_init), dev)
+                except ValueError:
+                    grids[i] = None     # the dense grid is infeasible here
         return clouds[i]
 
     idx_target = start_epoch
@@ -195,8 +204,19 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
     and prepares every epoch itself (no collective: neither does the
     prefetch thread, since two threads on one communicator deadlock) and
     runs each pair point-sharded; only rank 0 writes files, each write
-    followed by a barrier.
+    followed by a barrier.  The campaign is the span ``campaign``.
     """
+    with gphase("campaign"):
+        return _run_4d(cfg, start_epoch, epoch_num, pair_mode, overlap_thd,
+                       ground_truth, shard_index, shard_count, resume,
+                       finalize, device, group)
+
+
+def _run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
+            pair_mode: int, overlap_thd: float,
+            ground_truth: Optional[str], shard_index: int, shard_count: int,
+            resume: bool, finalize: bool, device: "str | torch.device",
+            group) -> bool:
     from ..ops import _cuda
 
     dev = resolve_device(device) if group is None \
@@ -209,7 +229,7 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
 
     if dev.type == "cuda":
         _cuda.lib()      # build and load once, before the prefetch thread
-    timer = PhaseTimer()
+    timer = PhaseTimer("campaign.")
     input_folder, out_folder = cfg.path1, cfg.path2
     os.makedirs(out_folder, exist_ok=True)
     pairs_dir = os.path.join(out_folder, "pairs")
@@ -255,8 +275,13 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
         return start_epoch
 
     def _prepare(idx: int):
-        return prepare_target(_load_cloud_cached(files[idx]), cfg,
-                              cfg.sor_std_mult_4d, device=dev)
+        with gphase("campaign.prepare", epoch=idx):
+            return prepare_target(_load_cloud_cached(files[idx]), cfg,
+                                  cfg.sor_std_mult_4d, device=dev)
+
+    def _wait(idx: int, fut):
+        with gphase("campaign.prefetch_wait", epoch=idx):
+            return fut.result()
 
     epoch_states: Dict[int, object] = {}   # epoch idx -> TargetState
     ts_list: List[int] = []
@@ -266,11 +291,12 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
     missing: List[int] = []
 
     # one-epoch lookahead: while pair k registers, one worker thread
-    # prepares pair k+1's missing epochs (its kernels queue on the same
-    # device; the two threads share GLOBAL_TIMER, a known quirk)
+    # (prefetch_0 in the span records) prepares pair k+1's missing epochs;
+    # its kernels queue on the same device
     pending: Dict[int, object] = {}
     prev_direct_tm: Optional[np.ndarray] = None
-    with ThreadPoolExecutor(max_workers=1) as prefetch_pool:
+    with ThreadPoolExecutor(max_workers=1,
+                            thread_name_prefix="prefetch") as prefetch_pool:
         for i in range(start_epoch, epoch_num - 1):
             step = i - start_epoch + 1
             ref_idx = _ref_of(i)
@@ -304,7 +330,8 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
                         for old in [k for k in epoch_states if k < ref_idx]:
                             del epoch_states[old]
                         fut = pending.pop(idx, None)
-                        epoch_states[idx] = (fut.result() if fut is not None
+                        epoch_states[idx] = (_wait(idx, fut)
+                                             if fut is not None
                                              else _prepare(idx))
                 nxt = i + 1
                 if nxt < epoch_num - 1 \
@@ -328,7 +355,8 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
                 prefix = os.path.join(out_folder,
                                       f"{times[i + 1]}_{mode_name}")
                 if writer:
-                    write_pair_report(prefix, result)
+                    with gphase("io.write_pair"):
+                        write_pair_report(prefix, result)
             except PwICPError as e:
                 log.error("step %d failed (%s); skipping to next", step, e)
                 failed.append(step)
@@ -338,12 +366,14 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
             tm_list.append(tm)
             vcm_list.append(vcm)
             if writer:
-                _write_whole(pair_npz, lambda f: np.savez(
-                    f, tm=tm, vcm=vcm, failed=was_failed, ts=times[i + 1]))
+                with gphase("io.write_pair"):
+                    _write_whole(pair_npz, lambda f: np.savez(
+                        f, tm=tm, vcm=vcm, failed=was_failed,
+                        ts=times[i + 1]))
             written()
         for idx, fut in pending.items():    # prepared, never consumed
             try:
-                fut.result()
+                _wait(idx, fut)
             except PwICPError as e:
                 log.error("epoch %d preparation failed (%s)", times[idx], e)
 
@@ -368,23 +398,13 @@ def run_4d(cfg: PiecewiseICPConfig, start_epoch: int, epoch_num: int,
 def _finalize(cfg: PiecewiseICPConfig, out_folder: str, start_epoch: int,
               pair_mode: int, reg_pairs, ts_list, tm_list, vcm_list,
               ground_truth: Optional[str], timer: PhaseTimer) -> None:
-    """Write the tables, chain to the reference epoch, smooth, compare
-    with the ground truth and dump the phase timings."""
-    formats.write_trans_matrices(os.path.join(out_folder,
-                                              "TransMatrices.txt"),
-                                 ts_list, tm_list, vcm_list)
-    _write_param_table(os.path.join(out_folder, "TransParameters.txt"),
-                       ts_list, tm_list, vcm_list)
-
+    """Chain to the reference epoch, smooth, then write the tables and
+    the errors against the ground truth (the phase ``tables``) and dump
+    the phase timings."""
     # ---- chain to the reference epoch (Registration.cpp:192-203) ----
     with timer.phase("chaining"):
         chained_t, chained_v = chain_to_reference(tm_list, vcm_list,
                                                   pair_mode, reg_pairs)
-    formats.write_trans_matrices(
-        os.path.join(out_folder, "TransMatrices_toRef.txt"),
-        ts_list, chained_t, chained_v)
-    _write_param_table(os.path.join(out_folder, "TransParameters_toRef.txt"),
-                       ts_list, chained_t, chained_v)
 
     # ---- Kalman smoothing ----
     smooth = None
@@ -392,6 +412,29 @@ def _finalize(cfg: PiecewiseICPConfig, out_folder: str, start_epoch: int,
         with timer.phase("kalman"):
             smooth = kalman_smooth_transforms(chained_t, chained_v,
                                               cfg.kalman_process_noise)
+
+    with timer.phase("tables"):
+        _write_tables(cfg, out_folder, start_epoch, ts_list, tm_list,
+                      vcm_list, chained_t, chained_v, smooth, ground_truth)
+    timer.dump(os.path.join(out_folder, "phase_timings.jsonl"))
+
+
+def _write_tables(cfg: PiecewiseICPConfig, out_folder: str,
+                  start_epoch: int, ts_list, tm_list, vcm_list, chained_t,
+                  chained_v, smooth, ground_truth: Optional[str]) -> None:
+    """The transform and parameter tables (pairwise, chained, smoothed)
+    and the absolute errors against the ground truth where it exists."""
+    formats.write_trans_matrices(os.path.join(out_folder,
+                                              "TransMatrices.txt"),
+                                 ts_list, tm_list, vcm_list)
+    _write_param_table(os.path.join(out_folder, "TransParameters.txt"),
+                       ts_list, tm_list, vcm_list)
+    formats.write_trans_matrices(
+        os.path.join(out_folder, "TransMatrices_toRef.txt"),
+        ts_list, chained_t, chained_v)
+    _write_param_table(os.path.join(out_folder, "TransParameters_toRef.txt"),
+                       ts_list, chained_t, chained_v)
+    if smooth is not None:
         formats.write_trans_matrices(
             os.path.join(out_folder, "TransMatrices_toRef_smoothed.txt"),
             ts_list, smooth.trans_mats, list(smooth.covariances))
@@ -416,5 +459,3 @@ def _finalize(cfg: PiecewiseICPConfig, out_folder: str, start_epoch: int,
                 errors_s)
             log.info("mean abs errors, smoothed (mgon/mm): %s",
                      np.array2string(errors_s.mean(axis=0), precision=3))
-
-    timer.dump(os.path.join(out_folder, "phase_timings.jsonl"))

@@ -25,7 +25,7 @@ import torch
 
 from ..ops.nn_cuda import sqdist
 from ..ops.transform import params_to_matrix_torch
-from ..utils.logging import log
+from ..utils.logging import log, note_sync, to_device, to_host
 
 
 def _masked_nn(q: torch.Tensor, q_mask: torch.Tensor,
@@ -95,8 +95,8 @@ def point_to_plane_icp(target: torch.Tensor, target_normals: torch.Tensor,
     src = source
     src_n = (source_normals if source_normals is not None
              else torch.zeros_like(source))
-    prev_mse = torch.tensor(torch.inf, **f32)
-    mse = torch.tensor(torch.inf, **f32)
+    prev_mse = to_device(torch.inf, target.device, target.dtype)
+    mse = to_device(torch.inf, target.device, target.dtype)
     it = 0
     while True:
         idx, dist = _masked_nn(src, source_mask, target, target_mask)
@@ -118,6 +118,7 @@ def point_to_plane_icp(target: torch.Tensor, target_normals: torch.Tensor,
             a.T @ a, a.T @ l, torch.where(source_mask, dist * dist, 0.0).sum(),
             n_src)
         x = torch.linalg.solve(ata + eye6, atl)
+        note_sync(ata)                  # its check of the factorisation
         t_delta = params_to_matrix_torch(x)
         src = src @ t_delta[:3, :3].T + t_delta[:3, 3]
         src_n = src_n @ t_delta[:3, :3].T
@@ -132,7 +133,7 @@ def point_to_plane_icp(target: torch.Tensor, target_normals: torch.Tensor,
         go = (~delta_ok) & ((change > fitness_eps)
                             | (change > 1e-5 * torch.clamp(prev_mse,
                                                            min=1e-30)))
-        if it >= max_iterations or not bool(go):
+        if it >= max_iterations or not bool(to_host(go)):
             return trans, it
 
 

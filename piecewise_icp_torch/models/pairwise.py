@@ -37,7 +37,8 @@ from ..config import PiecewiseICPConfig
 from ..io import formats, read_pcd, write_pcd
 from ..utils.errors import PwICPError
 from ..utils import viz
-from ..utils.logging import PhaseTimer, gphase, log
+from ..utils.logging import (PhaseTimer, annotated_spans, gphase, log,
+                             to_device)
 
 from ..device import resolve_device
 from ..ops.preprocess import (estimate_resolution, preprocess_cloud,
@@ -79,8 +80,8 @@ def _resolution(points: np.ndarray, cfg: PiecewiseICPConfig, which: int,
     ``isSetResSVsize: 0``."""
     if cfg.set_res_svsize:
         return cfg.res1 if which == 1 else cfg.res2
-    return estimate_resolution(torch.from_numpy(
-        np.ascontiguousarray(points, dtype=np.float32)).to(device))
+    return estimate_resolution(to_device(
+        np.ascontiguousarray(points, dtype=np.float32), device))
 
 
 def _sv_size(cfg: PiecewiseICPConfig, res: float, which: int) -> float:
@@ -178,7 +179,9 @@ def _params6(t: np.ndarray) -> np.ndarray:
 @contextlib.contextmanager
 def _profile_trace(profile_dir: Optional[str], dev: torch.device):
     """Trace the block with ``torch.profiler`` into ``profile_dir`` (one
-    Chrome trace JSON a block); nothing when ``profile_dir`` is empty."""
+    Chrome trace JSON a block), the program's spans as
+    ``record_function`` ranges in it; nothing when ``profile_dir`` is
+    empty."""
     if not profile_dir:
         yield
         return
@@ -187,7 +190,7 @@ def _profile_trace(profile_dir: Optional[str], dev: torch.device):
     acts = [ProfilerActivity.CPU]
     if dev.type == "cuda":
         acts.append(ProfilerActivity.CUDA)
-    with profile(activities=acts) as prof:
+    with profile(activities=acts) as prof, annotated_spans():
         yield
     os.makedirs(profile_dir, exist_ok=True)
     path = os.path.join(profile_dir, f"register_pair_{os.getpid()}_"
@@ -218,7 +221,7 @@ def register_pair(points1: Optional[np.ndarray],
         else group.local_device(device)
     trace_dir = os.environ.get("PWICP_PROFILE_DIR") \
         if group is None or group.is_root else None
-    with _profile_trace(trace_dir, dev):
+    with _profile_trace(trace_dir, dev), gphase("pair"):
         return _register_pair(points1, points2, cfg or PiecewiseICPConfig(),
                               sor_mult, target_state, source_state,
                               lattice_offset, initial_transform, dev, group)
@@ -228,7 +231,7 @@ def _register_pair(points1, points2, cfg: PiecewiseICPConfig, sor_mult,
                    target_state, source_state, lattice_offset,
                    initial_transform, dev: torch.device, group
                    ) -> RegistrationOutput:
-    timer = PhaseTimer()
+    timer = PhaseTimer("pair.")
     mult = sor_mult if sor_mult is not None else cfg.sor_std_mult_pair
 
     if target_state is None:
@@ -411,14 +414,15 @@ def piecewise_icp_pair_call(confile: str, outfile: str,
         return False
     result = register_pair(pts1, pts2, cfg, device=device, group=group)
     if group is None or group.is_root:
-        write_pair_report(outfile, result, source_points=pts2)
-        if cfg.visual:
-            write_visualizations(outfile, result)
-            # the post-registration view of the original clouds
-            reg = apply_transform_np(pts2.astype(np.float64),
-                                     result.trans_mat).astype(np.float32)
-            viz.export_three_clouds(str(outfile) + "ThreeClouds.pcd",
-                                    pts1, pts2, reg)
+        with gphase("io.write_pair"):
+            write_pair_report(outfile, result, source_points=pts2)
+            if cfg.visual:
+                write_visualizations(outfile, result)
+                # the post-registration view of the original clouds
+                reg = apply_transform_np(pts2.astype(np.float64),
+                                         result.trans_mat).astype(np.float32)
+                viz.export_three_clouds(str(outfile) + "ThreeClouds.pcd",
+                                        pts1, pts2, reg)
         log.info("transformation results saved to %s", outfile)
     if group is not None:
         group.barrier()

@@ -30,7 +30,7 @@ import torch
 
 from ..config import PiecewiseICPConfig
 from ..utils.errors import DegenerateGeometryError
-from ..utils.logging import gphase, log
+from ..utils.logging import gphase, log, note_sync, to_device, to_host
 
 from ..device import fetch, resolve_device
 from ..ops.grid_nn import CellGrid, build_grid
@@ -144,7 +144,7 @@ def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile,
     scalars."""
     _, d, resolved, strict, n_unresolved = range_nn1_counted(
         cloud2, pt_stable, grid)
-    n_bad = int(n_unresolved)
+    n_bad = int(to_host(n_unresolved))
     u = min(_PCT_RESCUE, n_bad)
     ok = resolved
     if n_bad:
@@ -152,9 +152,11 @@ def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile,
         ok = resolved.clone()
         if u:
             sel = torch.nonzero(~resolved).squeeze(1)[:u]
+            note_sync(resolved)
             with gphase("core.stage1_rescue", queries=u):
                 _, d[sel] = nn1_brute(cloud2[sel], grid.points)
-            ok[sel] = True
+            # a Python value would be uploaded by index_put_ itself
+            ok[sel] = to_device(True, ok.device)
         d_ok = torch.where(ok, d, torch.inf)
     else:
         d_ok = d
@@ -162,16 +164,15 @@ def _stage1_percentile(cloud2, pt_stable, grid: CellGrid, percentile,
     # unresolved
     counts = torch.cat([
         torch.stack([pt_stable.sum(), (ok & pt_stable).sum()]),
-        torch.tensor([int(not strict), int(n_bad > u), n_bad],
-                     device=d.device)])
+        to_device([int(not strict), int(n_bad > u), n_bad], d.device)])
     if group is not None:
         d_ok = group.gather(d_ok)
         (counts,) = group.sum_many(counts)
     idx = torch.clamp((counts[0].to(torch.float32)
-                       * torch.tensor(percentile, dtype=torch.float32,
-                                      device=d.device)).to(torch.int64),
-                      0, d_ok.shape[0] - 1)
+                       * to_device(percentile, d.device, torch.float32)
+                       ).to(torch.int64), 0, d_ok.shape[0] - 1)
     d_grid = torch.sort(d_ok).values[idx]
+    note_sync(d_ok)                 # a 0-dim device index is read first
     # exact when every unresolved query was rescued, or under the
     # order-statistic argument (strict: unresolved => true distance > h,
     # and the percentile index lands in the resolved block)
@@ -194,8 +195,7 @@ def _iteration_step(ct1, n1, std_ct1, ct1_mask, ct2, n2, bp2, std_bp2,
     Returns (stats [24] f64 on the host — T_icp (16), LoD_min, n_stable,
     icp_iters, max_bb, d75, d75_exact, n_pt_stable, n_unresolved — then
     the device tensors stable, pt_stable and the moved source state)."""
-    f32 = dict(dtype=torch.float32, device=ct1.device)
-    scal = {k: torch.tensor(v, **f32) for k, v in dict(
+    scal = {k: to_device(v, ct1.device, torch.float32) for k, v in dict(
         curr_dt=curr_dt, dt_min=dt_min, max_lod=max_lod, sv_sum=sv_sum,
         bb_leaf=bb_leaf).items()}
     t_icp, stable, lod_min, n_stable, icp_iters = _classify_and_align(
@@ -222,9 +222,9 @@ def _iteration_step(ct1, n1, std_ct1, ct1_mask, ct2, n2, bp2, std_bp2,
         d75, d75_exact, n_bad = _stage1_percentile(cloud2, pt_stable, grid,
                                                    percentile, group)
     else:
-        d75 = torch.tensor(torch.inf, **f32)
-        d75_exact = torch.tensor(True, device=ct1.device)
-        n_bad = torch.tensor(0, device=ct1.device)
+        d75 = to_device(torch.inf, ct1.device, torch.float32)
+        d75_exact = to_device(True, ct1.device)
+        n_bad = to_device(0, ct1.device)
     n_pt_stable = pt_stable.sum()
     if group is not None:
         n_pt_stable = group.sum(n_pt_stable)
@@ -236,8 +236,7 @@ def _iteration_step(ct1, n1, std_ct1, ct1_mask, ct2, n2, bp2, std_bp2,
     stats = torch.cat([
         t_icp.reshape(-1).to(torch.float64),
         torch.stack([lod_min.to(torch.float64), n_stable.to(torch.float64),
-                     torch.tensor(float(icp_iters), dtype=torch.float64,
-                                  device=ct1.device),
+                     to_device(float(icp_iters), ct1.device, torch.float64),
                      max_bb.to(torch.float64), d75.to(torch.float64),
                      d75_exact.to(torch.float64),
                      n_pt_stable.to(torch.float64),
@@ -454,8 +453,7 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
     else:
         with gphase("core.dtinit"):
             curr_dt = percentile_c2c(
-                torch.as_tensor(cloud1).to(dev),
-                torch.as_tensor(cloud2).to(dev),
+                to_device(cloud1, dev), to_device(cloud2, dev),
                 cfg.dtinit_percentile) * cfg.dtinit_mult
     log.info("DT initial value = %g m", curr_dt)
 
@@ -477,7 +475,7 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
             f"not enough patches: PC1={p1}, PC2={p2} (<4)")
 
     def up(a, dtype=None):
-        t = torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+        t = to_device(np.ascontiguousarray(a), dev)
         return t if dtype is None else t.to(dtype)
 
     ct1 = up(patches1.centroids)
@@ -508,10 +506,9 @@ def piecewise_icp(cloud1: np.ndarray, cloud2: np.ndarray,
     if group is not None:
         group.check_replicated(
             ct1, n1, std_ct1, ct2, n2, bp2, std_bp2, cloud2_t, labels2_t,
-            grid1.points, grid1.cell_starts, torch.tensor(
+            grid1.points, grid1.cell_starts, to_device(
                 [curr_dt, res1, res2, sv1, sv2, p1, p2, n2pts, grid1.h,
-                 *grid1.origin, *grid1.dims], dtype=torch.float64,
-                device=dev))
+                 *grid1.origin, *grid1.dims], dev, torch.float64))
         cloud2_t = group.shard(rows(cloud2_t))
         cloud2_mask = group.shard(rows(cloud2_mask, False))
         labels2_t = group.shard(rows(labels2_t, -1))

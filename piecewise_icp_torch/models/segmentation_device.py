@@ -22,7 +22,7 @@ from ..device import fetch, resolve_device
 from ..ops.grid_nn import CellGrid, build_grid
 from ..ops.preprocess import _SOR_RESCUE, sor_mask_sorted
 from ..ops.seg_cuda import propagate_rounds, seg_stats
-from ..utils.logging import gphase, log
+from ..utils.logging import gphase, log, to_device, to_host
 
 _MAX_ROUNDS = 256           # propagation round cap (matches the host twin)
 
@@ -65,7 +65,7 @@ def _seg_patches_fused(grid: CellGrid, q_mask: torch.Tensor,
 
     dev = grid.points.device
     t2, _cnt, normals = seg_stats(grid, q_mask, k)
-    seed_idx = torch.from_numpy(seeds_sorted.astype(np.int64)).to(dev)
+    seed_idx = to_device(seeds_sorted.astype(np.int64), dev)
     lab_sorted, rounds = propagate_rounds(
         grid, normals, t2, q_mask, seed_idx, sv_resolution,
         max_rounds=_MAX_ROUNDS)
@@ -110,14 +110,17 @@ def segment_patches_device(points: np.ndarray, sv_resolution: float,
     h = _seg_h(k, resolution)
 
     with gphase("seg.fused"):
-        index = build_grid(pts, h)
-        grid = CellGrid.from_index(index, device)
-        seeds = propagate_seeds(index.points[:n], sv_resolution,
-                                origin=seed_origin)
+        with gphase("seg.fused.grid"):
+            index = build_grid(pts, h)
+            grid = CellGrid.from_index(index, device)
+        with gphase("seg.fused.seeds"):
+            seeds = propagate_seeds(index.points[:n], sv_resolution,
+                                    origin=seed_origin)
         q_mask = torch.ones(n, dtype=torch.bool, device=device)
-        (lab_sorted, valid, trim, ct, bp, nrm, std_bp, std_ct,
-         cnt) = _seg_patches_fused(grid, q_mask, seeds, k, sv_resolution,
-                                   cfg)
+        with gphase("seg.fused.patches"):
+            (lab_sorted, valid, trim, ct, bp, nrm, std_bp, std_ct,
+             cnt) = _seg_patches_fused(grid, q_mask, seeds, k,
+                                       sv_resolution, cfg)
 
     ids = index.ids[:n]
     labels_in = np.empty(n, dtype=np.int32)
@@ -176,21 +179,22 @@ def preprocess_segment_device(down: np.ndarray, resolution: float,
         if n_bad > min(_SOR_RESCUE, n):
             log.info("unified SOR: %d unresolved > budget", n_bad)
             return None
-        keep_sorted = keep_t.cpu().numpy()
+        keep_sorted = to_host(keep_t).numpy()
 
     with gphase("seg.fused"):
-        kept_sorted_idx = np.flatnonzero(keep_sorted)
-        so = None if seed_origin is None else (
-            np.asarray(seed_origin, np.float64) + shift0)
-        seeds_kept = propagate_seeds(index.points[:n][keep_sorted],
-                                     sv_resolution, origin=so)
-        seeds_sorted = kept_sorted_idx[seeds_kept]
+        with gphase("seg.fused.seeds"):
+            kept_sorted_idx = np.flatnonzero(keep_sorted)
+            so = None if seed_origin is None else (
+                np.asarray(seed_origin, np.float64) + shift0)
+            seeds_kept = propagate_seeds(index.points[:n][keep_sorted],
+                                         sv_resolution, origin=so)
+            seeds_sorted = kept_sorted_idx[seeds_kept]
         pts2 = torch.where(keep_t[:, None], grid.points,
-                           torch.tensor(1e30, dtype=torch.float32,
-                                        device=device))
-        (lab_sorted, valid, trim, ct, bp, nrm, std_bp, std_ct,
-         cnt) = _seg_patches_fused(grid.with_points(pts2), keep_t,
-                                   seeds_sorted, k, sv_resolution, cfg)
+                           to_device(1e30, device, torch.float32))
+        with gphase("seg.fused.patches"):
+            (lab_sorted, valid, trim, ct, bp, nrm, std_bp, std_ct,
+             cnt) = _seg_patches_fused(grid.with_points(pts2), keep_t,
+                                       seeds_sorted, k, sv_resolution, cfg)
 
     ids = index.ids[:n]
     labels_in = np.full(n, -1, dtype=np.int32)

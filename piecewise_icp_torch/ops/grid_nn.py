@@ -22,6 +22,8 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.logging import to_device
+
 
 def _bucket(n: int, base: int = 8) -> int:
     """Round up to the next power-of-two multiple of ``base``."""
@@ -114,9 +116,8 @@ class CellGrid:
     def from_index(cls, grid: GridIndex, device: torch.device) -> "CellGrid":
         n = grid.n_real
         return cls(
-            points=torch.from_numpy(np.ascontiguousarray(
-                grid.points[:n])).to(device),
-            cell_starts=torch.from_numpy(grid.cell_starts).to(device),
+            points=to_device(np.ascontiguousarray(grid.points[:n]), device),
+            cell_starts=to_device(grid.cell_starts, device),
             origin=tuple(float(v) for v in grid.origin),
             dims=tuple(int(v) for v in grid.dims), h=float(grid.h))
 

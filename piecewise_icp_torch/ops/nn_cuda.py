@@ -35,6 +35,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from ..utils.logging import note_sync
 from . import _cuda
 from .grid_nn import CellGrid
 
@@ -301,8 +302,10 @@ def _nn1_brute_kernel(queries: torch.Tensor, targets: torch.Tensor,
     if t_mask is not None:
         _cuda.check(t_mask, "t_mask", torch.bool, (nt,), dev)
     # only live queries work: the kernel reads them through this list
-    live = None if q_mask is None \
-        else torch.nonzero(q_mask).squeeze(1).to(torch.int32)
+    live = None
+    if q_mask is not None:
+        live = torch.nonzero(q_mask).squeeze(1).to(torch.int32)
+        note_sync(q_mask)
     nlive = nq if live is None else live.shape[0]
     tile = _cuda.lib().pwicp_nn1_tile()
     nt_pad = -(-nt // tile) * tile

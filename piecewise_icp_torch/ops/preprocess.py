@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..utils.logging import gphase, log
+from ..utils.logging import gphase, log, note_sync, to_device, to_host
 
 from .grid_nn import CellGrid, build_grid
 from .nn_cuda import (knn_brute, knn_distances, knn_sorted, nn1_brute,
@@ -95,6 +95,7 @@ def sor_mask_sorted(grid: CellGrid, q_mask: torch.Tensor, k: int,
 
     bad = q_mask & ~resolved
     bad_idx = torch.nonzero(bad).squeeze(1)
+    note_sync(bad)
     n_bad = int(bad_idx.shape[0])
     if 0 < n_bad and (rescue_max is None or n_bad <= rescue_max):
         mean_d[bad_idx] = _exact_knn_means(grid.points[bad_idx],
@@ -138,8 +139,9 @@ def sor_keep_mask_device(down: np.ndarray, resolution: float, sor_k: int,
     if grid_index is None:
         log.info("device SOR: no grid fits the extent; brute k-NN")
         with gphase("prep.sor.device"):
-            pts = torch.from_numpy(np.ascontiguousarray(down)).to(device)
-            return sor_filter_mask(pts, None, sor_k, sor_mult).cpu().numpy()
+            pts = to_device(np.ascontiguousarray(down), device)
+            return to_host(sor_filter_mask(pts, None, sor_k,
+                                           sor_mult)).numpy()
     with gphase("prep.sor.grid"):
         grid = CellGrid.from_index(grid_index, device)
     with gphase("prep.sor.device"):
@@ -148,7 +150,7 @@ def sor_keep_mask_device(down: np.ndarray, resolution: float, sor_k: int,
             sor_mult, rescue_max=None)
         if n_bad:
             log.info("device SOR: %d unresolved queries re-measured", n_bad)
-        keep_sorted = keep_t.cpu().numpy()
+        keep_sorted = to_host(keep_t).numpy()
     keep = np.empty(n, dtype=bool)
     keep[grid_index.ids[:n]] = keep_sorted
     return keep
@@ -170,9 +172,9 @@ def preprocess_cloud(points: np.ndarray, resolution: float,
             keep = sor_keep_mask_device(down, resolution, sor_k, sor_mult,
                                         dev)
         else:
-            keep = sor_filter_mask(
-                torch.from_numpy(np.ascontiguousarray(down)).to(dev), None,
-                k=sor_k, std_mult=sor_mult).cpu().numpy()
+            keep = to_host(sor_filter_mask(
+                to_device(np.ascontiguousarray(down), dev), None,
+                k=sor_k, std_mult=sor_mult)).numpy()
     return down[keep]
 
 
@@ -186,7 +188,7 @@ def estimate_resolution(points: torch.Tensor,
     d1 = knn_distances(points, points, 2, t_mask=mask)[:, 1]
     valid = mask & torch.isfinite(d1)
     n = torch.clamp(valid.sum(), min=1)
-    return float(torch.where(valid, d1, 0.0).sum() / n)
+    return float(to_host(torch.where(valid, d1, 0.0).sum() / n))
 
 
 def percentile_c2c(target: torch.Tensor, source: torch.Tensor,
@@ -207,10 +209,11 @@ def percentile_of(d: torch.Tensor, percentile: float) -> float:
     n = finite.sum()
     d_sorted = torch.sort(torch.where(finite, d, torch.inf)).values
     idx = torch.clamp((n.to(torch.float32)
-                       * torch.tensor(percentile, dtype=torch.float32,
-                                      device=d.device)
+                       * to_device(percentile, d.device, torch.float32)
                        ).to(torch.int64), 0, d.shape[0] - 1)
-    return float(d_sorted[idx])
+    at = d_sorted[idx]
+    note_sync(d)                    # a 0-dim device index is read first
+    return float(to_host(at))
 
 
 def _ratio(hits: int, n: int) -> float:
@@ -225,7 +228,8 @@ def overlap_ratio(target: torch.Tensor, source: torch.Tensor,
     < DTinit (``calOverlapRatioByC2Cdist``), over the brute 1-NN (K5)."""
     _, d = nn1_brute(source, target, q_mask=s_mask, t_mask=t_mask)
     finite = torch.isfinite(d)
-    return _ratio(int((finite & (d < dt_init)).sum()), int(finite.sum()))
+    return _ratio(int(to_host((finite & (d < dt_init)).sum())),
+                  int(to_host(finite.sum())))
 
 
 def overlap_ratio_grid(target_grid: CellGrid, source: torch.Tensor,
@@ -242,4 +246,4 @@ def overlap_ratio_grid(target_grid: CellGrid, source: torch.Tensor,
     # every query live (no mask); a resolved distance is finite
     _, d, resolved, _ = range_nn1(source, None, target_grid)
     hit = resolved & (d < dt_init)
-    return _ratio(int(hit.sum()), source.shape[0])
+    return _ratio(int(to_host(hit.sum())), source.shape[0])

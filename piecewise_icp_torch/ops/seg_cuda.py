@@ -29,6 +29,7 @@ from typing import Tuple
 
 import torch
 
+from ..utils.logging import to_host
 from . import _cuda
 from .eigh3 import eigvals3, smallest_eigvec3
 from .grid_nn import CellGrid
@@ -321,7 +322,7 @@ def _propagate_kernel(grid: CellGrid, normals: torch.Tensor,
                  max_rounds, *grid.kernel_args(), rows[0].data_ptr(),
                  rows[1].data_ptr(), rows[2].data_ptr(), labels.data_ptr(),
                  ctrl.data_ptr(), device=dev)
-    return labels, int(ctrl[0])                   # the one read of the call
+    return labels, int(to_host(ctrl[0]))          # the one read of the call
 
 
 def propagate_rounds(grid: CellGrid, normals: torch.Tensor, r2: torch.Tensor,

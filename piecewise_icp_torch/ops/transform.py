@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import ARC_TO_GON
+from ..utils.logging import to_device
 
 
 # ----------------------------------------------------------------------
@@ -125,8 +126,7 @@ def params_to_matrix_torch(x: torch.Tensor) -> torch.Tensor:
                       torch.stack([zero, zero, one])])
     R = (Rz @ Ry) @ Rx
     top = torch.cat([R, x[3:6, None]], dim=1)
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=x.dtype,
-                          device=x.device)
+    bottom = to_device([[0.0, 0.0, 0.0, 1.0]], x.device, x.dtype)
     return torch.cat([top, bottom], dim=0)
 
 

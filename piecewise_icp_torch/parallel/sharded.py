@@ -37,6 +37,7 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 from ..utils.errors import PwICPError
+from ..utils.logging import note_sync, to_host
 
 
 class ShardGroup:
@@ -169,7 +170,9 @@ class ShardGroup:
         red = self._reduce(torch.cat([c, -c]), dist.ReduceOp.MAX,
                            "check_replicated")
         hi, lo = red[:len(sums)], -red[len(sums):]
-        differ = torch.nonzero(hi != lo).reshape(-1).tolist()
+        bad = torch.nonzero(hi != lo).reshape(-1)
+        note_sync(bad)
+        differ = to_host(bad).tolist()
         if differ:
             raise PwICPError(f"replicated inputs {differ} (of "
                              f"{len(sums)}) differ between the ranks")

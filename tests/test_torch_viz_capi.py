@@ -130,6 +130,10 @@ def test_profile_dir_writes_a_trace(rng, tmp_path, monkeypatch):
     assert len(traces) == 1
     events = json.loads(traces[0].read_text())["traceEvents"]
     assert any(e.get("ph") == "X" for e in events)
+    # the program's spans are ranges of the trace
+    names = {e.get("name") for e in events}
+    assert {"pair", "pair.target", "pair.core", "core.iteration",
+            "seg.fused"} <= names
 
 
 @pytest.fixture(scope="module")
