@@ -15,8 +15,10 @@ on a grid with sentinel points and one cell crowded beyond the window a
 block stages in shared memory, and the grid 1-NN on it too; the label propagation as one round and as the whole loop
 in one launch, also with the round cap reached before convergence), works
 out each kernel's bound on the card from these inputs, checks
-resolution estimation against a float64 KD-tree, then drives the port's
-two entry points on the card:
+resolution estimation against a float64 KD-tree, holds the voxel grouping
+(K7) against the host ``voxel_downsample`` and ``propagate_seeds`` bit for
+bit at the benchmark cells' shapes and times it (phase ``voxel``), then
+drives the port's two entry points on the card:
 
 1. one synthetic pair through
    ``piecewise_icp_torch.piecewise_icp_pair_call(...)`` with no ``device``
@@ -69,13 +71,14 @@ JAX or JAX package; the script exits 0 only when every phase passed.  The
 last line of standard output is the JSON summary ``{"ok": true, "device":
 {...}}``; the line before it is the card's name and power limit, and the
 one before that the per-kernel JSON record (launches counted in the 4D
-campaign, which runs the five TPU kernels' counterparts, and for the brute
-k-NN in the rockfall phase; times, bounds and errors of this run; the
-whole-loop launch of the label propagation has a row of its own).
+campaign, which runs the five TPU kernels' counterparts and the voxel
+grouping, and for the brute k-NN in the rockfall phase; times, bounds and
+errors of this run; the whole-loop launch of the label propagation and each
+of the voxel grouping's two entries have a row of their own).
 
 ``python3 chip_smoke.py --only PHASE [PHASE ...]`` builds the kernels and
-runs only the named phases of 2, 3, 5, 6 and 7 (or the pair of 1), with no
-JSON record: the way to run one phase on another tree, such as a parent's.
+runs only the named phases of 2, 3, 5, 6 and 7 (or the pair of 1, or
+``voxel``), with no JSON record: the way to run one phase on another tree, such as a parent's.
 
 ``python3 chip_smoke.py --sweep VARIANT [VARIANT ...]`` runs none of the
 above: it times K1-K4 and K4's whole loop at the same shapes (K1 at both of
@@ -156,18 +159,27 @@ REPLACES = {
     # pair's staged SOR), also its in-program rescue and ops/nn.py:knn
     "knn_brute": ("piecewise_icp_torch/csrc/knn_brute.cu",
                   "piecewise_icp_tpu/native/pwicp_host.cpp:351"),
+    # hand-written, no Pallas counterpart: the voxel grouping, for the two
+    # host numpy functions of the JAX package, the voxel-grid downsample
+    # and the supervoxel seed choice; both entries run in both
+    "voxel_keys": ("piecewise_icp_torch/csrc/voxel.cu",
+                   "piecewise_icp_tpu/ops/preprocess.py:28"),
+    "voxel_segments": ("piecewise_icp_torch/csrc/voxel.cu",
+                       "piecewise_icp_tpu/models/segmentation_device.py:108"),
 }
 
 # the kernels of the pair path with the default configuration (DTinit
 # set, so no K5)
 PAIR_KERNELS = ("range_nn1", "knn_sorted", "seg_stats", "prop_round",
-                "propagate")
+                "propagate", "voxel_keys", "voxel_segments")
 # the kernels the drifting campaign must launch (auto DT-init: K5 too);
 # K6 runs there only where the unified SOR leaves queries to its rescue
 CAMPAIGN_KERNELS = PAIR_KERNELS + ("nn1_brute",)
 # the kernels of the rockfall path (both clouds decline the unified path:
 # the staged SOR re-measures its unresolved queries by K6)
 ROCKFALL_KERNELS = PAIR_KERNELS + ("knn_brute",)
+# the voxel grouping's synthetic epoch: that of the benchmark's pair cells
+VOXEL_N_SIDE = 418
 
 # the 4D campaign: the reference's synthetic series length, random-walk
 # ground truth per step (rotation std 8e-4 rad, translation std 3 mm) plus
@@ -223,7 +235,8 @@ JAX_ROCKFALL_PAIR = np.array([
 FLEET_EPOCHS = 101
 FLEET_WORKERS = (1, 2, 4)
 # the kernels every worker of the fleet must launch (DTinit set: no K5)
-FLEET_KERNELS = ("range_nn1", "knn_sorted", "seg_stats", "propagate")
+FLEET_KERNELS = ("range_nn1", "knn_sorted", "seg_stats", "propagate",
+                 "voxel_keys", "voxel_segments")
 # the quasi-static Kalman campaign (eval/kalman_quasistatic.py) and the
 # independent-component reduction the JAX package reports for it on the
 # reference scan, another base (eval/kalman_quasistatic.json)
@@ -1494,8 +1507,9 @@ def rockfall_phase(seed: int) -> dict:
     require(not plain_on_cuda,
             f"rockfall: plain versions ran on CUDA tensors: {plain_on_cuda}")
     results = rockfall_kernels(res3, pts1, pts2, cfg.svsize1)
-    for name, row in results.items():
-        row["launches"] = int(launches.get(name, 0))
+    for name in REPLACES:
+        results.setdefault(name, {})["launches"] = int(
+            launches.get(name, 0))
     log(f"rockfall phase: {time.perf_counter() - t_phase:.1f} s")
     return results
 
@@ -2588,6 +2602,9 @@ def four_d_phase(seed: int, k5_ms: float) -> dict:
                             if r["phase"] == K5_RESCUE_PHASE), default=0)
         n_segmented = sum(r["phase"] == "seg.fused"
                           for r in GLOBAL_TIMER.records)
+        k7_calls = {k: sum(r.get("counts", {}).get(k, 0)
+                           for r in GLOBAL_TIMER.records)
+                    for k in ("voxel_device", "seeds_device")}
         require(ok, "piecewise_icp_4d_call returned False")
         for name in OUTPUTS_4D:
             require((out / name).exists(), f"4d: {name} missing")
@@ -2648,11 +2665,23 @@ def four_d_phase(seed: int, k5_ms: float) -> dict:
     require(launches["seg_stats"] == n_segmented,
             f"4d: {n_segmented} clouds segmented but "
             f"{launches['seg_stats']} K3 launches")
+    # the voxel grouping: a seed choice a segmented cloud, each call of K7
+    # counted in its span, one launch of each entry a call
+    n_k7 = k7_calls["voxel_device"] + k7_calls["seeds_device"]
+    require(k7_calls["seeds_device"] == n_segmented,
+            f"4d: {n_segmented} clouds segmented but "
+            f"{k7_calls['seeds_device']} seed choices on the card")
+    require(launches["voxel_keys"] == n_k7
+            and launches["voxel_segments"] == n_k7,
+            f"4d: {k7_calls} calls of K7 counted in spans but "
+            f"{launches['voxel_keys']} / {launches['voxel_segments']} "
+            f"launches of its two entries")
     log(f"4d: {n_segmented} clouds segmented: {launches['seg_stats']} K3 "
         f"launches, {launches['propagate']} whole-loop calls of K4 in "
         f"{launches['prop_round']} K4 launches "
         f"({launches['prop_round'] / n_segmented:.2f} a cloud, one host read "
-        f"each)")
+        f"each); K7: {k7_calls['voxel_device']} downsamples and "
+        f"{k7_calls['seeds_device']} seed choices on the card")
     require(not plain_on_cuda,
             f"plain versions ran on CUDA tensors: {plain_on_cuda}")
     require(len(set(plan.values())) > 1,
@@ -2989,6 +3018,144 @@ def profile_run(run, label: str) -> float:
     return busy / max(wall * 1e3, 1e-9)
 
 
+def device_ms(fn, matches: tuple, reps: int = 10) -> dict:
+    """Device time a call of the kernels whose names hold each of
+    ``matches``, from torch.profiler over ``reps`` calls after one
+    warm-up: {match: ms}."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type != DeviceType.CPU]
+    return {m: sum(e.self_device_time_total for e in events if m in e.key)
+            / 1e3 / reps for m in matches}
+
+
+# K7's entries and the kernels each launches
+VOXEL_KERNELS = {"voxel_keys": ("voxel_bounds", "voxel_keys"),
+                 "voxel_segments": ("voxel_segments",)}
+
+
+def voxel_phase(seed: int) -> dict:
+    """K7 at the benchmark cells' shapes (one synthetic epoch of 418 x 418
+    points, leaf 5 mm, seeds at 5 cm; the first rockfall epoch of the
+    rockfall phase's series, leaf 0.3 m, seeds at 3 m): the downsample of
+    the raw cloud and the seed choice over the segmentation grid
+    (world-aligned origin), equal to ``voxel_downsample`` and
+    ``propagate_seeds`` bit for bit, with one launch of each entry a call
+    and no plain version on the card.  Times the wrapper, K7's own device
+    time, its bound (the cloud read once, the voxels written once) and the
+    plain versions (the host numpy functions).  Returns, for each cell,
+    a row for each of K7's entries: its device time in the downsample
+    (``ms``) and in the seed choice (``seeds_ms``), each against the bytes
+    that entry reads and writes once, and the whole call's times."""
+    import torch
+
+    from piecewise_icp_torch.io import read_pcd
+    from piecewise_icp_torch.models.segmentation_device import (
+        _seg_h, propagate_seeds)
+    from piecewise_icp_torch.ops import _cuda, voxel_cuda
+    from piecewise_icp_torch.ops.grid_nn import build_grid
+    from piecewise_icp_torch.ops.preprocess import voxel_downsample
+    from piecewise_icp_torch.utils import rockfall
+    from piecewise_icp_torch.utils.synth import terrain_cloud
+
+    dev = torch.device("cuda")
+    out = {}
+    for cell, leaf, sv in (("synthetic", 0.005, 0.05),
+                           ("rockfall", ROCKFALL_RES, 3.0)):
+        _cuda.reset_counts()
+        if cell == "synthetic":
+            raw = terrain_cloud(np.random.default_rng(seed),
+                                n_side=VOXEL_N_SIDE)
+        else:
+            with tempfile.TemporaryDirectory() as tmp:
+                scans = rockfall.generate_rockfall(
+                    tmp, 1, seed=ROCKFALL_SEED, extent=ROCKFALL_EXTENT,
+                    res=ROCKFALL_RES)
+                raw = read_pcd(os.path.join(scans, os.listdir(scans)[0]))
+        down = voxel_downsample(raw, leaf)
+        grid_pts = build_grid(down, _seg_h(KNN_NORMALS, leaf)
+                              ).points[:len(down)]
+        origin = np.floor(grid_pts.astype(np.float64).min(axis=0) / sv) * sv
+        seeds = propagate_seeds(grid_pts, sv, origin=origin)
+        t_raw = torch.from_numpy(raw).to(dev)
+        t_grid = torch.from_numpy(grid_pts).to(dev)
+        got = voxel_cuda.voxel_centroids(t_raw, leaf).cpu().numpy()
+        require(got.tobytes() == down.tobytes(),
+                f"K7 {cell}: centroids differ from voxel_downsample")
+        got_s = voxel_cuda.voxel_seeds(t_grid, sv, origin=origin)
+        require(np.array_equal(got_s.cpu().numpy(), seeds),
+                f"K7 {cell}: seeds differ from propagate_seeds")
+        require(not _cuda.PLAIN_ON_CUDA
+                and _cuda.LAUNCHES["voxel_keys"] == 2
+                and _cuda.LAUNCHES["voxel_segments"] == 2,
+                f"K7 {cell}: launches {dict(_cuda.LAUNCHES)}, plain "
+                f"versions on CUDA tensors {dict(_cuda.PLAIN_ON_CUDA)}")
+        n, m, ns = len(raw), len(down), len(seeds)
+
+        def centroids():
+            return voxel_cuda.voxel_centroids(t_raw, leaf)
+
+        def seed_choice():
+            return voxel_cuda.voxel_seeds(t_grid, sv, origin=origin)
+
+        names = sum(VOXEL_KERNELS.values(), ())
+        dev_c = device_ms(centroids, names)
+        dev_s = device_ms(seed_choice, names)
+        call = dict(
+            points=n, voxels=m, seeds=ns,
+            call_ms=time_ms(centroids, reps=20),
+            call_bound_ms=bound(12 * n + 12 * m, 0)["bound_ms"],
+            plain_ms=time_ms(lambda: voxel_downsample(raw, leaf),
+                             device="cpu"),
+            seeds_call_ms=time_ms(seed_choice, reps=20),
+            seeds_call_bound_ms=bound(12 * m + 8 * ns, 0)["bound_ms"],
+            seeds_plain_ms=time_ms(lambda: propagate_seeds(
+                grid_pts, sv, origin=origin), device="cpu"))
+        # the bytes each entry reads and writes once: the keys read the
+        # points and write the keys (and the distances to the centres);
+        # the walk reads the sorted keys, the permutation, the starts and
+        # the points (or the distances) and writes the voxels
+        io = {"voxel_keys": (12 * n + 8 * n, 12 * m + 16 * m),
+              "voxel_segments": (8 * n + 8 * n + 8 * m + 12 * n + 12 * m,
+                                 8 * m + 8 * m + 8 * ns + 8 * m + 8 * ns)}
+        rows = out[cell] = {}
+        for name, kernels in VOXEL_KERNELS.items():
+            b_down, b_seed = io[name]
+            seeds_bound = bound(b_seed, 0)
+            rows[name] = dict(
+                ms=sum(dev_c[k] for k in kernels),
+                **bound(b_down, 0),
+                seeds_ms=sum(dev_s[k] for k in kernels),
+                seeds_bound_ms=seeds_bound["bound_ms"],
+                seeds_bound_by=seeds_bound["bound_by"], **call)
+        keys, walk = rows["voxel_keys"], rows["voxel_segments"]
+        k7 = keys["ms"] + walk["ms"]
+        k7_s = keys["seeds_ms"] + walk["seeds_ms"]
+        log(f"K7 voxel, {cell}: {n} points -> {m} voxels, the same bits as "
+            f"voxel_downsample; wrapper {call['call_ms']:.3f} ms, K7's "
+            f"kernels {k7:.4f} ms (keys {keys['ms']:.4f}, walk "
+            f"{walk['ms']:.4f}), bound {call['call_bound_ms']:.5f} ms "
+            f"(bytes: {100 * call['call_bound_ms'] / call['call_ms']:.2f}% "
+            f"of the wrapper, {100 * call['call_bound_ms'] / k7:.1f}% of the "
+            f"kernels); host numpy {call['plain_ms']:.3f} ms")
+        log(f"K7 seeds, {cell}: {m} points -> {ns} seeds, the same indices "
+            f"as propagate_seeds; wrapper {call['seeds_call_ms']:.3f} ms, "
+            f"K7's kernels {k7_s:.4f} ms (keys {keys['seeds_ms']:.4f}, walk "
+            f"{walk['seeds_ms']:.4f}), bound "
+            f"{call['seeds_call_bound_ms']:.5f} ms; host numpy "
+            f"{call['seeds_plain_ms']:.3f} ms")
+    return out
+
+
 # ---------------------------------------------------------------------------
 # --sweep: the grid kernels' times with compile-time constants changed
 # ---------------------------------------------------------------------------
@@ -3221,7 +3388,7 @@ ONLY_PHASES = {"reproducible": reproducible_phase, "variants": variants_phase,
                "exports_hooks": exports_hooks_phase, "capi": capi_phase,
                "pair": pair_phase, "sharded": sharded_phase,
                "rockfall": rockfall_phase, "fleet": fleet_phase,
-               "bench": bench_phase}
+               "bench": bench_phase, "voxel": voxel_phase}
 
 
 def main(argv=None) -> int:
@@ -3282,12 +3449,18 @@ def main(argv=None) -> int:
         return 0
     kern = kernel_phases(args.seed)
     kern["nn1_brute"] = k5_phase(args.seed)
+    # K7's numbers: the synthetic cell's shape as the campaign's, the
+    # rockfall cell's as the rockfall phase's
+    voxel = voxel_phase(args.seed)
+    kern.update(voxel["synthetic"])
     k6_resolution = resolution_check(args.seed)
     k6_unified = unified_rescue_check(args.seed)
     pair_phase(args.seed)
     staged_pair_phase(args.seed)
     k6_nogrid = sparse_staged_phase(args.seed)
     rockfall = rockfall_phase(args.seed)
+    for name, row in voxel["rockfall"].items():
+        rockfall[name].update(row)
     # K6's path is the rockfall pair's staged SOR: its main numbers are
     # those of the rescue there, its other shapes suffixed
     kern["knn_brute"] = {

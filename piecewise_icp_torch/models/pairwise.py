@@ -41,8 +41,8 @@ from ..utils.logging import (PhaseTimer, annotated_spans, gphase, log,
                              to_device)
 
 from ..device import resolve_device
-from ..ops.preprocess import (estimate_resolution, preprocess_cloud,
-                              voxel_downsample)
+from ..ops.preprocess import (downsample_cloud, estimate_resolution,
+                              preprocess_cloud, sor_downsampled)
 from ..ops.transform import (apply_transform_np, matrix_to_angles,
                              matrix_to_params_gon, params_to_matrix,
                              translation_matrix)
@@ -98,13 +98,13 @@ def _prepare_cloud(points: np.ndarray, cfg: PiecewiseICPConfig,
     frame]), or (kept points, None) when the unified path declines the
     cloud (fewer than 4,096 points after voxelisation, an extreme extent,
     too many unresolved SOR queries) or ``PWICP_NO_UNIFIED`` is set: the
-    staged ``preprocess_cloud`` then runs and the caller segments the kept
-    points itself."""
+    staged SOR then runs (on the declined cloud's voxel grid, which is not
+    made twice) and the caller segments the kept points itself."""
     if os.environ.get("PWICP_NO_UNIFIED"):
         return preprocess_cloud(points, res, cfg.sor_neighbors, sor_mult,
                                 device), None
     with gphase("prep.voxel"):
-        down = voxel_downsample(points, res)
+        down = downsample_cloud(points, res, device)
     seed_origin = None
     mn = down.astype(np.float64).min(axis=0)
     if cfg.seed_grid_align:
@@ -118,8 +118,8 @@ def _prepare_cloud(points: np.ndarray, cfg: PiecewiseICPConfig,
         cfg, seed_origin=seed_origin, device=device)
     if out is None:
         log.info("unified prep declined %d points: staged path", len(down))
-        return preprocess_cloud(points, res, cfg.sor_neighbors, sor_mult,
-                                device), None
+        return sor_downsampled(down, res, cfg.sor_neighbors, sor_mult,
+                               device), None
     ps, _nsv, kept = out
     return kept, ps
 

@@ -4,8 +4,9 @@
 SOR and supervoxel segmentation over ONE cell-sorted grid: the SOR k-NN
 (K2), per-point neighbourhood statistics and normals (K3), seeded label
 propagation (K4), then all patch statistics as segment reductions, with
-one batched device-to-host fetch.  Seeds are chosen on the host exactly as
-the reference chooses them (one per occupied supervoxel-size voxel, the
+one batched device-to-host fetch.  Seeds are chosen on the device (K7,
+``ops/voxel_cuda.py``) exactly as the reference chooses them on the host
+(:func:`propagate_seeds`: one per occupied supervoxel-size voxel, the
 point nearest its centre), so labels are seed-slot ids directly comparable
 with the reference's.
 
@@ -22,6 +23,7 @@ from ..device import fetch, resolve_device
 from ..ops.grid_nn import CellGrid, build_grid
 from ..ops.preprocess import _SOR_RESCUE, sor_mask_sorted
 from ..ops.seg_cuda import propagate_rounds, seg_stats
+from ..ops.voxel_cuda import voxel_seeds
 from ..utils.logging import gphase, log, to_device, to_host
 
 _MAX_ROUNDS = 256           # propagation round cap (matches the host twin)
@@ -54,20 +56,20 @@ def propagate_seeds(points: np.ndarray, resolution: float,
 
 
 def _seg_patches_fused(grid: CellGrid, q_mask: torch.Tensor,
-                       seeds_sorted: np.ndarray, k: int,
+                       seeds_sorted: torch.Tensor, k: int,
                        sv_resolution: float, cfg):
     """Segmentation + all patch statistics; ONE batched fetch.
 
-    Returns host arrays (labels [n] seed ids in SORTED order, valid [S],
-    trim [n], centroids, boundary, normals, std_bp, std_ct, counts).
+    ``seeds_sorted``: the seeds' int64 indices in SORTED order, on the
+    grid's device.  Returns host arrays (labels [n] seed ids in SORTED
+    order, valid [S], trim [n], centroids, boundary, normals, std_bp,
+    std_ct, counts).
     """
     from .segmentation import _patch_statistics
 
-    dev = grid.points.device
     t2, _cnt, normals = seg_stats(grid, q_mask, k)
-    seed_idx = to_device(seeds_sorted.astype(np.int64), dev)
     lab_sorted, rounds = propagate_rounds(
-        grid, normals, t2, q_mask, seed_idx, sv_resolution,
+        grid, normals, t2, q_mask, seeds_sorted, sv_resolution,
         max_rounds=_MAX_ROUNDS)
     log.info("label propagation: %d rounds", rounds)
     stats = _patch_statistics(grid.points, lab_sorted,
@@ -114,8 +116,8 @@ def segment_patches_device(points: np.ndarray, sv_resolution: float,
             index = build_grid(pts, h)
             grid = CellGrid.from_index(index, device)
         with gphase("seg.fused.seeds"):
-            seeds = propagate_seeds(index.points[:n], sv_resolution,
-                                    origin=seed_origin)
+            seeds = voxel_seeds(grid.points, sv_resolution,
+                                origin=seed_origin)
         q_mask = torch.ones(n, dtype=torch.bool, device=device)
         with gphase("seg.fused.patches"):
             (lab_sorted, valid, trim, ct, bp, nrm, std_bp, std_ct,
@@ -183,12 +185,10 @@ def preprocess_segment_device(down: np.ndarray, resolution: float,
 
     with gphase("seg.fused"):
         with gphase("seg.fused.seeds"):
-            kept_sorted_idx = np.flatnonzero(keep_sorted)
             so = None if seed_origin is None else (
                 np.asarray(seed_origin, np.float64) + shift0)
-            seeds_kept = propagate_seeds(index.points[:n][keep_sorted],
-                                         sv_resolution, origin=so)
-            seeds_sorted = kept_sorted_idx[seeds_kept]
+            seeds_sorted = voxel_seeds(grid.points, sv_resolution,
+                                       origin=so, mask=keep_t)
         pts2 = torch.where(keep_t[:, None], grid.points,
                            to_device(1e30, device, torch.float32))
         with gphase("seg.fused.patches"):

@@ -53,6 +53,7 @@ PLAIN_ON_CUDA: "collections.Counter[str]" = collections.Counter()
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _GRID_ARGS = [_P, _P, _I, _F, _F, _F, _F, _I, _I, _I]
 
 _SIGNATURES = {
@@ -69,6 +70,8 @@ _SIGNATURES = {
     "pwicp_knn_brute_cap": [_I, _I, _I],
     "pwicp_knn_brute_layout": [_I, _I, _I, _P],
     "pwicp_knn_cap": [],
+    "pwicp_voxel_keys": [_P, _P, _I, _I, _D, _I, _D, _D, _D, _P, _P, _P, _P],
+    "pwicp_voxel_segments": [_P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _P],
     "pwicp_seg_cap": [],
     "pwicp_prop_cap": [],
 }

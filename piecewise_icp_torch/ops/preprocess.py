@@ -1,8 +1,9 @@
 """Point-cloud preprocessing — counterpart of
-``piecewise_icp_tpu/ops/preprocess.py``: voxel-grid downsampling on the
-host, statistical outlier removal (the unified path's device decision, the
-staged path's device SOR and its small-cloud branch), resolution
-estimation, percentile C2C distances and overlap ratios.
+``piecewise_icp_tpu/ops/preprocess.py``: voxel-grid downsampling (the
+host version, and on the device through K7), statistical outlier removal
+(the unified path's device decision, the staged path's device SOR and its
+small-cloud branch), resolution estimation, percentile C2C distances and
+overlap ratios.
 
 Every SOR decision runs on the device of its tensors: where the JAX
 package hands a declined cloud to the native host statistic, the staged
@@ -23,6 +24,7 @@ from ..utils.logging import gphase, log, note_sync, to_device, to_host
 from .grid_nn import CellGrid, build_grid
 from .nn_cuda import (knn_brute, knn_distances, knn_sorted, nn1_brute,
                       range_nn1)
+from .voxel_cuda import voxel_centroids
 
 # Unresolved SOR queries (k+1-th neighbour beyond h: genuinely sparse
 # points, the outliers SOR exists to find) that the unified path re-measures
@@ -156,6 +158,15 @@ def sor_keep_mask_device(down: np.ndarray, resolution: float, sor_k: int,
     return keep
 
 
+def downsample_cloud(points: np.ndarray, leaf: float,
+                     device: torch.device) -> np.ndarray:
+    """:func:`voxel_downsample` of a host cloud on ``device``: the raw
+    cloud goes up, K7 groups it on a CUDA device (the plain version on the
+    CPU), and the centroids come back, the same bits."""
+    pts = to_device(np.ascontiguousarray(points, dtype=np.float32), device)
+    return to_host(voxel_centroids(pts, leaf)).numpy()
+
+
 def preprocess_cloud(points: np.ndarray, resolution: float,
                      sor_k: int = 14, sor_mult: float = 2.7,
                      device: "torch.device | str" = "cuda") -> np.ndarray:
@@ -166,14 +177,21 @@ def preprocess_cloud(points: np.ndarray, resolution: float,
     entries), where the JAX package takes any ``sor_k``."""
     dev = resolve_device(device)
     with gphase("prep.voxel"):
-        down = voxel_downsample(points, resolution)
+        down = downsample_cloud(points, resolution, dev)
+    return sor_downsampled(down, resolution, sor_k, sor_mult, dev)
+
+
+def sor_downsampled(down: np.ndarray, resolution: float, sor_k: int,
+                    sor_mult: float, device: torch.device) -> np.ndarray:
+    """The staged path's SOR of an already voxel-downsampled cloud (see
+    :func:`preprocess_cloud`): the kept points of ``down``, in order."""
     with gphase("prep.sor"):
         if down.shape[0] > 4096:
             keep = sor_keep_mask_device(down, resolution, sor_k, sor_mult,
-                                        dev)
+                                        device)
         else:
             keep = to_host(sor_filter_mask(
-                to_device(np.ascontiguousarray(down), dev), None,
+                to_device(np.ascontiguousarray(down), device), None,
                 k=sor_k, std_mult=sor_mult)).numpy()
     return down[keep]
 

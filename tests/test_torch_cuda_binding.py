@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from piecewise_icp_torch.ops import _cuda, nn_cuda, seg_cuda
+from piecewise_icp_torch.ops import _cuda, nn_cuda, seg_cuda, voxel_cuda
 from piecewise_icp_torch.ops.grid_nn import CellGrid, build_grid
 
 from util import terrain_cloud
@@ -31,7 +31,8 @@ def _declarations():
                 else:
                     words = prm.split()[:-1]
                     types.append({"int": ctypes.c_int,
-                                  "float": ctypes.c_float}[words[-1]])
+                                  "float": ctypes.c_float,
+                                  "double": ctypes.c_double}[words[-1]])
             assert name not in found, f"{name} declared twice"
             found[name] = types
     return found
@@ -44,7 +45,7 @@ def test_every_entry_has_a_signature():
 @pytest.mark.parametrize("name", sorted(_cuda._SIGNATURES))
 def test_signature_matches_declaration(name):
     """Same arity (the stream is the last pointer), ``c_void_p`` for every
-    pointer, ``c_int`` / ``c_float`` for the scalars."""
+    pointer, ``c_int`` / ``c_float`` / ``c_double`` for the scalars."""
     declared = _declarations()[name]
     assert _cuda._SIGNATURES[name] == declared
     launched = not name.endswith(("_cap", "_tile", "_ctrl", "_layout"))
@@ -85,7 +86,8 @@ def recorded(monkeypatch):
 @pytest.mark.parametrize("entry", ["pwicp_range_nn1", "pwicp_knn_sorted",
                                    "pwicp_nn1_brute", "pwicp_knn_brute",
                                    "pwicp_seg_stats", "pwicp_prop_round",
-                                   "pwicp_propagate"])
+                                   "pwicp_propagate", "pwicp_voxel_keys",
+                                   "pwicp_voxel_segments"])
 def test_wrapper_passes_its_device_to_launch(recorded, entry):
     grid, calls = recorded
     n = grid.n
@@ -106,6 +108,11 @@ def test_wrapper_passes_its_device_to_launch(recorded, entry):
         seg_cuda._seg_stats_kernel(grid, qm, 5)
     elif entry == "pwicp_prop_round":
         seg_cuda._prop_round_kernel(grid, rows, qm, rows, 1.0, 1.0, False)
+    elif entry == "pwicp_voxel_keys":
+        voxel_cuda._keys_kernel(grid.points, 1, 0.1, (0.0, 0.0, 0.0), qm)
+    elif entry == "pwicp_voxel_segments":
+        ids = torch.arange(n)
+        voxel_cuda._segments_kernel(grid.points, ids, ids, ids[::3], f, 1)
     else:
         seg_cuda._propagate_kernel(grid, grid.points, f, qm,
                                    torch.arange(0, n, 7), 0.1, 4)

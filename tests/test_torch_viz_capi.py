@@ -11,6 +11,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from piecewise_icp_tpu.utils import viz as jviz
 
@@ -119,6 +120,35 @@ def test_no_unified_takes_the_staged_path(rng, monkeypatch):
     res = pairwise.register_pair(c1, c2, cfg, device="cpu")
     assert calls == {"unified": 0, "staged": 2}
     assert _truth_max(res.trans_mat, t_true, c2) < 5e-3
+
+
+def test_declined_cloud_is_voxelised_once(rng, monkeypatch):
+    """A 3,600-point cloud lies under the unified path's 4,096-point
+    floor: the staged SOR takes the declined attempt's voxel grid, so each
+    cloud of a pair is voxelised once, and the kept points are those the
+    JAX package's voxel grid gives through the staged SOR."""
+    from piecewise_icp_torch.ops import preprocess as tpre
+    from piecewise_icp_tpu.ops.preprocess import voxel_downsample
+
+    c1, c2, _ = make_pair(rng, PARAMS, n_side=60)
+    cfg = config_from_jax(small_test_config(guard_enabled=False))
+    mult, res = cfg.sor_std_mult_pair, cfg.res1
+    calls = []
+    group = tpre.voxel_centroids
+    monkeypatch.setattr(tpre, "voxel_centroids",
+                        lambda *a, **k: calls.append(1) or group(*a, **k))
+    cpu = torch.device("cpu")
+    kept, ps = pairwise._prepare_cloud(c1, cfg, mult, res,
+                                       pairwise._sv_size(cfg, res, 1), None,
+                                       cpu)
+    assert ps is None and len(calls) == 1
+    want = tpre.sor_downsampled(voxel_downsample(c1, res), res,
+                                cfg.sor_neighbors, mult, cpu)
+    assert kept.dtype == want.dtype and kept.tobytes() == want.tobytes()
+    assert 0 < len(kept) < 4096
+    calls.clear()
+    pairwise.register_pair(c1, c2, cfg, device="cpu")
+    assert len(calls) == 2
 
 
 def test_profile_dir_writes_a_trace(rng, tmp_path, monkeypatch):
