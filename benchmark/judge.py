@@ -298,17 +298,3 @@ def campaign_answer(out_dir, n_epochs: int) -> Dict:
                                    "TransMatrices_toRef_smoothed.txt")):
         ans["smoothed"] = read_series(out_dir, "_toRef_smoothed")
     return ans
-
-
-def judge_campaign_cell(answers, epochs, gt, cell, seed: int, dev) -> Dict:
-    read = [campaign_answer(a["out"], len(epochs)) for a in answers]
-    return judge_series(read, epochs, cell.config["settings"],
-                        cell.config["campaign"], cell.traffic, seed, dev)
-
-
-def judge_pair_cell(answers, epochs, gt, cell, seed: int, dev) -> Dict:
-    return judge_pairs(answers, epochs, cell.config["settings"],
-                       cell.traffic, seed, dev)
-
-
-JUDGES = {"pair": judge_pair_cell, "campaign": judge_campaign_cell}

@@ -22,3 +22,22 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the control runs on the card")
     return torch.device("cuda", 0)
+
+
+@pytest.fixture()
+def kinds(monkeypatch):
+    """The request kinds of ``benchmark/tests/kinds/``, found as modules of
+    ``benchmark.entries`` for the test's length: registered by the test,
+    with no file added to ``benchmark/entries/``."""
+    import importlib
+
+    import benchmark.entries as entries
+
+    here = pathlib.Path(__file__).resolve().parent / "kinds"
+    monkeypatch.setattr(entries, "__path__", [*entries.__path__, str(here)])
+    importlib.invalidate_caches()
+    yield
+    for name in [n for n, m in sys.modules.items()
+                 if n.startswith("benchmark.entries.")
+                 and str(getattr(m, "__file__", "")).startswith(str(here))]:
+        del sys.modules[name]

@@ -43,7 +43,8 @@ def test_loaded_modules_of_a_run():
     readers) in a fresh process: no forbidden top-level name."""
     code = (
         "import sys, json; sys.path.insert(0, %r)\n"
-        "from benchmark import harness, drive, judge, trace, control\n"
+        "from benchmark import harness, drive, judge, trace, control, child\n"
+        "import benchmark.entries.pair, benchmark.entries.campaign\n"
         "import piecewise_icp_torch.models.pairwise\n"
         "import piecewise_icp_torch.models.four_d\n"
         "import benchmark.reference.models.pairwise\n"

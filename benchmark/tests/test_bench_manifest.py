@@ -1,6 +1,6 @@
 """The manifest keeps to the contract, and every cell finds its
-configuration, mix, metric readers and limits by name; added files alone
-bring a new configuration, mix and metric in."""
+configuration, mix, request kind, metric readers and limits by name; added
+files alone bring a new configuration, mix and metric in."""
 
 import json
 import re
@@ -25,7 +25,7 @@ def test_manifest_keys():
         assert c["file"].startswith("benchmark/")
     for w in MANIFEST["workloads"]:
         assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert w["chips"] == 1 and len(w["why"]) <= 200
+        assert w["chips"] in (1, 4) and len(w["why"]) <= 200
     names = [m["name"] for m in MANIFEST["end_to_end"] + MANIFEST["per_layer"]]
     assert len(names) == len(set(names))
     assert "setup_s" in names
@@ -47,16 +47,14 @@ def test_manifest_keys():
 def test_cell_found_by_name(cell):
     c = harness.Cell(cell)
     assert c.config["name"] == c.entry["config"]
-    assert c.traffic["entry"] in ("pair", "campaign")
+    kind = c.kind()
+    assert kind.__name__ == "benchmark.entries." + c.traffic["entry"]
     assert c.end_to_end and c.per_layer
     assert any(m["name"] == "setup_s" for m in c.end_to_end)
     assert any(m["name"] != "setup_s" for m in c.end_to_end)
     for m in c.end_to_end + c.per_layer:
         assert callable(c.reader(m["name"]))
-    expected = {"pose_gap_mm", "sigma_gap"}
-    if c.traffic["entry"] == "campaign":
-        expected.add("plan_mismatch")
-    assert set(c.limits["limits"]) == expected
+    assert set(c.limits["limits"]) == set(kind.CHECKS)
     for m in c.per_layer:
         assert any(e["name"] == m["moves"] for e in c.end_to_end)
 

@@ -45,7 +45,7 @@ def test_breakdown_names_gaps_by_open_span():
     spans = [("pair", 0, 100), ("prep.voxel", 0, 30), ("core.iteration",
                                                       60, 90)]
     ops = [("k1", 30, 40), ("k2", 50, 60), ("k1", 90, 100)]
-    b = trace.breakdown(ops, spans, 0, 100)
+    b = trace.breakdown([(ops, spans)], 0, 100)
     assert b["device_ops"] == [["k1", 2e-8], ["k2", 1e-8]]
     # gaps [0, 30] under prep.voxel, [40, 50] under pair, [60, 90] under
     # core.iteration

@@ -58,3 +58,31 @@ def make_root(tmp: pathlib.Path, limits=None) -> pathlib.Path:
         json.dumps({"limits": dict(lim, plan_mismatch=0)}))
     (tmp / "piecewise_icp_torch").symlink_to(ROOT / "piecewise_icp_torch")
     return tmp
+
+
+def add_cell(root: pathlib.Path, name: str, mix: str, traffic: dict,
+             limits: dict, rate: str, readers=None, chips: int = 1) -> None:
+    """Add the cell ``name`` of the tiny configuration under the mix
+    ``mix`` (``traffic/<mix>.json``, written from ``traffic``), with its
+    ``limits``, reporting the end-to-end metric ``rate`` besides ``setup_s``
+    and, in its traced run, the per-layer metrics of ``readers``: {metric:
+    the source of ``metrics/<metric>.py``}, each in ``count`` and moving
+    ``rate``."""
+    bench = root / "benchmark"
+    (bench / "traffic" / f"{mix}.json").write_text(json.dumps(traffic))
+    (bench / "limits" / f"{name}.json").write_text(
+        json.dumps({"limits": limits}))
+    manifest = json.loads((root / "BENCHMARK.json").read_text())
+    manifest["workloads"].append({"name": name, "config": "tiny",
+                                  "traffic": mix, "chips": chips,
+                                  "why": "test"})
+    for m in manifest["end_to_end"]:
+        if m["name"] == rate:
+            m["workloads"].append(name)
+    for metric, source in (readers or {}).items():
+        (bench / "metrics" / f"{metric}.py").write_text(source)
+        manifest["per_layer"].append({
+            "name": metric, "unit": "count", "better": "higher",
+            "source": "program_span", "layer": "test", "moves": rate,
+            "workloads": [name]})
+    (root / "BENCHMARK.json").write_text(json.dumps(manifest))

@@ -78,8 +78,9 @@ def base_name(kernel: str) -> str:
 def device_profile(on_cuda: bool = True):
     """Profile the device's activity of the block (kernels, copies,
     fills); yields a dict that receives ``ops``: [(name, start ns, end
-    ns)] once the block has ended.  ``on_cuda`` False (the CPU tests)
-    traces host operations only, so ``ops`` stays empty."""
+    ns)] once the block has ended, and ``cards``: the card of each
+    (``cuda:<index>``).  ``on_cuda`` False (the CPU tests) traces host
+    operations only, so both stay empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -87,14 +88,16 @@ def device_profile(on_cuda: bool = True):
     act = ProfilerActivity.CUDA if on_cuda else ProfilerActivity.CPU
     with profile(activities=[act]) as prof:
         yield out
-    ops = []
+    ops, cards = [], []
     for e in prof.profiler.kineto_results.events():
         if e.device_type() != torch.autograd.DeviceType.CUDA:
             continue
         dur = e.duration_ns()
         if dur > 0:
             ops.append((e.name(), e.start_ns(), e.start_ns() + dur))
+            cards.append(f"cuda:{e.device_index()}")
     out["ops"] = ops
+    out["cards"] = cards
 
 
 def busy_intervals(ops) -> List[Interval]:
@@ -123,19 +126,23 @@ def span_at(spans, times) -> List[str]:
     return out
 
 
-def breakdown(ops, spans, lo_ns: int, hi_ns: int, top: int = 10) -> dict:
+def breakdown(cards, lo_ns: int, hi_ns: int, top: int = 10) -> dict:
     """The device operations that took most time, and the idle time of
-    the device summed by the host span open at each gap's middle; seconds,
-    at most ``top`` of each."""
+    the devices summed by the host span open at each gap's middle;
+    seconds, at most ``top`` of each.  ``cards`` holds, a card each, its
+    device operations and the host spans of the processes on it: the
+    operations are summed by name over the cards, and each card's idle
+    time is billed to the spans of its own processes."""
     by_op: Dict[str, float] = {}
-    for name, s, e in ops:
-        key = name[:NAME_CHARS]
-        by_op[key] = by_op.get(key, 0.0) + (e - s) * 1e-9
     by_gap: Dict[str, float] = {}
-    idle = stats.gaps(busy_intervals(ops), lo_ns, hi_ns)
-    names = span_at(spans, [0.5 * (s + e) for s, e in idle])
-    for name, (s, e) in zip(names, idle):
-        by_gap[name] = by_gap.get(name, 0.0) + (e - s) * 1e-9
+    for ops, spans in cards:
+        for name, s, e in ops:
+            key = name[:NAME_CHARS]
+            by_op[key] = by_op.get(key, 0.0) + (e - s) * 1e-9
+        idle = stats.gaps(busy_intervals(ops), lo_ns, hi_ns)
+        names = span_at(spans, [0.5 * (s + e) for s, e in idle])
+        for name, (s, e) in zip(names, idle):
+            by_gap[name] = by_gap.get(name, 0.0) + (e - s) * 1e-9
 
     def ranked(d):
         return [[k, v] for k, v in sorted(d.items(), key=lambda kv: -kv[1])
